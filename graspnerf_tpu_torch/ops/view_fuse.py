@@ -1,0 +1,158 @@
+"""IBRNet-NeuS view fuse: the per-view MLP stack and the fusion across views.
+
+Replaces the Pallas kernel `_kernel` / `view_fuse`
+(graspnerf_tpu/ops/pallas/ibrnet_fuse.py:115-253); `view_fuse_plain` is the
+port of its jnp oracle `view_fuse_reference` (:52-98). On CUDA tensors
+`view_fuse` launches csrc/view_fuse.cu; its backward recomputes through the
+plain version, as the JAX custom VJP does.
+
+Inputs are [V,N,C] with V = 6 views leading: rgbf [V,N,35] (rgb | image
+features), neur [V,N,32] (prob embedding), rdiff [V,N,4] (direction
+difference | dot), mask [V,N,1]. `weights` are ten (weight [O,I], bias [O])
+pairs in W_NAMES order (torch Linear layout). Outputs: feat_const [N,65]
+(mean | var | mean weight), num_valid [N,1] (exact mask count), x [V,N,32],
+vis [V,N,1].
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .. import build
+
+V_VIEWS = 6
+C_RGBF, C_NEUR, C_DIFF, C_X, C_OUT = 35, 32, 4, 32, 65
+W_NAMES = ("ray_dir_fc.0", "ray_dir_fc.2", "neuray_fc.0", "neuray_fc.2",
+           "base_fc.0", "base_fc.2", "vis_fc.0", "vis_fc.2",
+           "vis_fc2.0", "vis_fc2.2")
+# (in, out) of each Linear in W_NAMES order; csrc/view_fuse.cu has the same
+LAYER_DIMS = ((4, 16), (16, 35), (32, 8), (8, 1), (207, 64), (64, 32),
+              (32, 32), (32, 33), (32, 32), (32, 1))
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _weighted_mean_var(x, w):
+    mean = torch.sum(x * w, 0)
+    var = torch.sum(w * (x - mean[None]) ** 2, 0)
+    return mean, var
+
+
+def view_fuse_plain(rgbf, neur, rdiff, mask, weights: Sequence[Pair]):
+    """Plain PyTorch version (the port of `view_fuse_reference`)."""
+    (wd0, wd1, wn0, wn1, wb0, wb1, wv0, wv1, wv20, wv21) = weights
+    df = F.elu(F.linear(F.elu(F.linear(rdiff, *wd0)), *wd1))
+    rf = rgbf + df
+
+    weight = mask / (torch.sum(mask, 0, keepdim=True) + 1e-8)
+    w0 = torch.sigmoid(F.linear(F.elu(F.linear(neur, *wn0)), *wn1)) * weight
+    mean0, var0 = _weighted_mean_var(rf, w0)
+    mean1, var1 = _weighted_mean_var(rf, weight)
+    gf = torch.cat([mean0, var0, mean1, var1], -1)             # [N,140]
+
+    V = rgbf.shape[0]
+    xin = torch.cat([gf[None].expand(V, -1, -1), rf, neur], -1)  # [V,N,207]
+    x = F.elu(F.linear(F.elu(F.linear(xin, *wb0)), *wb1))
+    xv = F.elu(F.linear(F.elu(F.linear(x * weight, *wv0)), *wv1))
+    x = x + xv[..., :C_X]
+    vis = torch.sigmoid(xv[..., C_X:]) * mask
+    vis = torch.sigmoid(
+        F.linear(F.elu(F.linear(x * vis, *wv20)), *wv21)) * mask
+
+    weight2 = vis / (torch.sum(vis, 0, keepdim=True) + 1e-8)
+    mean, var = _weighted_mean_var(x, weight2)
+    feat_const = torch.cat([mean, var, torch.mean(weight2, 0)], -1)
+    return feat_const, torch.sum(mask, 0), x, vis
+
+
+def pack_weights(weights: Sequence[Pair]) -> torch.Tensor:
+    """The kernel's weight buffer: each weight transposed to [I][O4] (O
+    padded with zeros to a multiple of 4, for float4 reads), all weights in
+    W_NAMES order, then all biases padded to O4."""
+    ws, bs = [], []
+    for (w, b), (i, o) in zip(weights, LAYER_DIMS):
+        if tuple(w.shape) != (o, i) or tuple(b.shape) != (o,):
+            raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)}"
+                             f" is not Linear({i}, {o})")
+        o4 = -(-o // 4) * 4
+        ws.append(F.pad(w.detach().t(), (0, o4 - o)).reshape(-1))
+        bs.append(F.pad(b.detach(), (0, o4 - o)))
+    return torch.cat(ws + bs).to(torch.float32).contiguous()
+
+
+def _launch(rgbf, neur, rdiff, mask, weights: Sequence[Pair]):
+    V, N = rgbf.shape[:2]
+    shapes = ((rgbf, C_RGBF), (neur, C_NEUR), (rdiff, C_DIFF), (mask, 1))
+    for t, c in shapes:
+        if tuple(t.shape) != (V_VIEWS, N, c):
+            raise ValueError(f"input {tuple(t.shape)} is not "
+                             f"[{V_VIEWS},{N},{c}]")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError("kernel takes contiguous float32 inputs")
+        if t.device != rgbf.device:
+            raise ValueError("all tensors must lie on one device")
+    wpack = pack_weights(weights).to(rgbf.device)
+    dev = dict(dtype=torch.float32, device=rgbf.device)
+    feat_const = torch.empty((N, C_OUT), **dev)
+    num_valid = torch.empty((N, 1), **dev)
+    x = torch.empty((V, N, C_X), **dev)
+    vis = torch.empty((V, N, 1), **dev)
+    lib = build.load("view_fuse")
+    fn = lib.view_fuse_forward
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(rgbf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(rgbf.data_ptr(), neur.data_ptr(), rdiff.data_ptr(),
+                    mask.data_ptr(), wpack.data_ptr(), feat_const.data_ptr(),
+                    num_valid.data_ptr(), x.data_ptr(), vis.data_ptr(), N,
+                    stream)
+    build.check(status, "view_fuse")
+    view_fuse.launches += 1
+    return feat_const, num_valid, x, vis
+
+
+class _ViewFuseFn(torch.autograd.Function):
+    """Kernel forward; backward = autograd through the plain version
+    (recompute, as `_vf_bwd` in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, rgbf, neur, rdiff, mask, *flat_w):
+        ctx.save_for_backward(rgbf, neur, rdiff, mask, *flat_w)
+        pairs = list(zip(flat_w[0::2], flat_w[1::2]))
+        return _launch(rgbf, neur, rdiff, mask, pairs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            flat_w = ins[4:]
+            outs = view_fuse_plain(*ins[:4],
+                                   list(zip(flat_w[0::2], flat_w[1::2])))
+            wrt = [t for t in ins if t.requires_grad]
+            # num_valid = sum(mask) has no graph unless mask needs a grad
+            live = [(o, torch.zeros_like(o) if g is None else g)
+                    for o, g in zip(outs, grads) if o.requires_grad]
+            gs = iter(torch.autograd.grad(
+                [o for o, _ in live], wrt, [g for _, g in live],
+                allow_unused=True))
+        return tuple(next(gs) if n else None for n in need)
+
+
+def view_fuse(rgbf, neur, rdiff, mask, weights: Sequence[Pair]):
+    """View-fuse wrapper: the CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors. Same arguments and results as `view_fuse_plain`."""
+    if rgbf.device.type == "cpu":
+        return view_fuse_plain(rgbf, neur, rdiff, mask, weights)
+    if rgbf.device.type != "cuda":
+        raise ValueError(f"no view fuse for device {rgbf.device}")
+    flat_w = [t for pair in weights for t in pair]
+    return _ViewFuseFn.apply(rgbf, neur, rdiff, mask, *flat_w)
+
+
+view_fuse.launches = 0
