@@ -4,7 +4,9 @@ NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
 
 1. builds both CUDA kernels from csrc/ (nvcc, all sources at once);
 2. holds each kernel against its plain PyTorch version at the volume path's
-   shapes (the view fuse also at a ragged N and through its backward);
+   shapes (the view fuse also at ragged N around its row tile and through
+   its backward, after checking its weight-pack guard) and times it; the
+   view fuse also at the render pass's N;
 3. drives the planner (`GraspNeRFPlanner.core`) at full width -- six
    288 x 512 views, a 40^3 volume, every layer at the shipped widths, seeded
    random weights -- for a few planning calls, counts the kernel launches,
@@ -32,10 +34,14 @@ import torch
 N_CALLS = 3            # planning calls on the counted main path
 SEED = 0
 VIEWS, HEIGHT, WIDTH, RES = 6, 288, 512, 40
+RENDER_ROWS = 4096 * 40   # the render pass's view-fuse rows: rays x samples
 # Tolerances, kernel vs plain version, float32 on the card:
-# - view fuse: the kernel sums 207-long dot products in another order (FMA)
-#   and uses expm1f/expf, so outputs differ by float32 rounding that grows
-#   through ten layers; num_valid is a count and must match exactly.
+# - view fuse: the kernel sums 207-long dot products in another order (FMA,
+#   base_fc.0's gf block in two partial sums), scales a layer's sums where
+#   the plain version scales its inputs, and takes ELU's and sigmoid's exp
+#   from the hardware exp (a few ulp), so outputs differ by float32 rounding
+#   that grows through ten layers; num_valid is a count and must match
+#   exactly.
 FUSE_ATOL, FUSE_RTOL = 1e-4, 1e-4
 # - gather: the kernel repeats the plain version's arithmetic op for op
 #   (built with -fmad=false), but PyTorch may divide by a scalar as a
@@ -135,13 +141,45 @@ def synthetic_views(rng):
 
 
 # ----------------------------------------------------------------- phases
+def fuse_bound(n):
+    """Least time of the view fuse over n rows: its multiply-adds (the gf
+    block of base_fc.0 once per row) at the float32 rate, or its bytes."""
+    from graspnerf_tpu_torch.ops.view_fuse import LAYER_DIMS
+    macs = n * (VIEWS * sum(i * o for i, o in LAYER_DIMS) - 5 * 140 * 64)
+    nbytes = 4 * (VIEWS * n * (35 + 32 + 4 + 1) + sum(
+        i * o + o for i, o in LAYER_DIMS) + n * 66 + VIEWS * n * 33)
+    return bound(2 * macs / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+
+
 def check_view_fuse(dev, gen):
-    from graspnerf_tpu_torch.ops.view_fuse import (view_fuse, view_fuse_plain,
-                                                   LAYER_DIMS)
+    from graspnerf_tpu_torch.ops import view_fuse as vf
+    from graspnerf_tpu_torch.ops.view_fuse import view_fuse, view_fuse_plain
     weights = fuse_weights(gen, dev)
+
+    # the weight-pack guard: the library states the pack size it reads
+    lib = vf.library()
+    n_pack = vf.pack_weights(weights).numel()
+    vf.check_pack(lib, n_pack)
+    try:
+        vf.check_pack(lib, n_pack + 4)
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, "view_fuse: a weight pack of the wrong size was taken")
+    tile = lib.view_fuse_tile_rows()
+    log(f"view_fuse: the kernel reads a {lib.view_fuse_pack_floats()}-float "
+        f"pack = pack_weights' {n_pack}; {n_pack + 4} is refused; tiles of "
+        f"{tile} rows")
+
+    def shifted(t):   # the same values one float past a 16-byte boundary
+        out = torch.empty(t.numel() + 1, device=t.device)[1:].view_as(t)
+        return out.copy_(t)
+
     errs = {}
-    for n in (RES ** 3, 1000):
-        ins = fuse_inputs(gen, n, dev)
+    for n in (1, tile - 1, tile + 1, 1000, RES ** 3, "1000 shifted"):
+        ins = fuse_inputs(gen, 1000 if n == "1000 shifted" else n, dev)
+        if n == "1000 shifted":   # takes the kernel's float-by-float loads
+            ins = [shifted(t) for t in ins]
         got = view_fuse(*ins, weights)
         torch.cuda.synchronize()
         want = view_fuse_plain(*ins, weights)
@@ -175,19 +213,21 @@ def check_view_fuse(dev, gen):
     log(f"view_fuse backward N=256: max_abs_err {bwd_err:.3e} "
         f"(atol {FUSE_ATOL}, rtol {FUSE_RTOL})")
 
-    ins = fuse_inputs(gen, RES ** 3, dev)
-    ms = cuda_time(lambda: view_fuse(*ins, weights))
-    plain_ms = cuda_time(lambda: view_fuse_plain(*ins, weights))
-    n = RES ** 3
-    macs = n * (VIEWS * sum(i * o for i, o in LAYER_DIMS) - 5 * 140 * 64)
-    nbytes = 4 * (VIEWS * n * (35 + 32 + 4 + 1) + sum(
-        i * o + o for i, o in LAYER_DIMS) + n * 66 + VIEWS * n * 33)
+    times = {}
+    for n in (RES ** 3, RENDER_ROWS):
+        ins = fuse_inputs(gen, n, dev)
+        times[n] = {"ms": cuda_time(lambda: view_fuse(*ins, weights)),
+                    "plain_ms": cuda_time(
+                        lambda: view_fuse_plain(*ins, weights)),
+                    **fuse_bound(n)}
+        del ins
+    log(f"view_fuse at the render pass's N={RENDER_ROWS} (4096 rays x 40 "
+        f"samples): " + json.dumps(times[RENDER_ROWS]))
     return {"name": "view_fuse", "route": "cuda",
             "source": "graspnerf_tpu_torch/csrc/view_fuse.cu",
             "replaces": "graspnerf_tpu/ops/pallas/ibrnet_fuse.py:115",
-            "max_abs_err": errs[RES ** 3], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None,
-            **bound(2 * macs / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)}
+            "max_abs_err": errs[RES ** 3], "library_ms": None,
+            **times[RES ** 3]}
 
 
 def check_gather(dev, gen):

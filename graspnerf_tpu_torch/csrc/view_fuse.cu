@@ -14,28 +14,41 @@
 // row for the gf part of base_fc.0, against 72 input and 33 output floats per
 // (row, view): float32 FMA on the CUDA cores, far above the card's
 // bytes-to-FLOP ratio.
-// Design: a block owns tiles of R = 32 rows and all six views: warp v runs
-// view v of those 32 rows, one thread per (row, view), so every warp executes
-// the same layer at once. All weights (79 KB, transposed to [in][out4] and
-// zero-padded to float4 columns) sit in dynamic shared memory for the life of
-// the block: a warp reads each weight float4 as one broadcast and does four
-// FMAs per read with the activation in a register. Activations stay in
-// registers (fully unrolled layers); only the cross-view reductions go
-// through shared memory, laid out [view][channel][row] so a warp's 32 rows
-// are 32 consecutive words. The gf block of base_fc.0 is the same for all six
-// views of a row, so it is computed once per row (its 64 outputs split over
-// the six warps) instead of once per view. Blocks are persistent: the grid is
-// what fits on the card, and each block walks tiles, loading the weights once.
-// ELU is expm1f; sums over views run in view order 0..5 so num_valid is exact.
+// Design: as the Pallas kernel does, the six views are folded into the
+// column axis, so each layer is one small matrix product over M = 6T
+// row-views. A persistent block (one per SM, 12 warps) keeps the whole weight
+// pack (79 KB, [in][out4]) in shared memory and walks tiles of T = 32 rows.
+// Activations live in shared memory channel-major, [C][MP] with column
+// m = v*T + r. Every layer, and the gf block (over M = T, split in two
+// over its input channels so that more warps share it), goes through one
+// routine, `tile_linear`: each thread accumulates a 4-column x 4- or
+// 8-output register tile, fed per input channel by one float4 of
+// activations and one or two float4s of weights, which the warp's lanes
+// share four- and eight-fold; bias, ELU/sigmoid, a per-column scale and a
+// residual add are fused into its epilogue. Cross-view reductions are
+// elementwise passes over the tile, with sums over views in view order
+// 0..5, so num_valid is exact. Tile I/O is coalesced: each view's T rows are
+// one contiguous block in device memory, read as float4s by consecutive
+// threads (all of a thread's reads in flight at once, the next tile's
+// blocks prefetched into L2) and transposed through shared memory.
+// What holds it back (tools/view_fuse_phases.py; PERF.md): shared memory
+// allows one block, 12 warps, per SM, too few to hide latency, so the
+// layers run at 27-57 % of the peak FMA rate; 13 barriers per tile, each
+// phase costing ~1k cycles however small its work; the tile load (10 %).
+// ELU is exp(x) - 1 and sigmoid 1 / (1 + exp(-x)) on the hardware exp.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int V = 6;
-constexpr int R = 32;             // rows per tile
-constexpr int kThreads = V * R;   // 192: warp v = view v
+constexpr int T = 32;                 // rows per tile
+constexpr int M = V * T;              // row-views per tile, column m = v*T + r
+constexpr int MP = M + 4;             // row stride of a [C][MP] activation
+constexpr int kWarps = 12;
+constexpr int kThreads = 32 * kWarps;
 constexpr int C_RGBF = 35, C_NEUR = 32, C_DIFF = 4, C_X = 32, C_OUT = 65;
-constexpr int C_GF = 4 * C_RGBF;  // 140
+constexpr int C_GF = 4 * C_RGBF;      // 140
+static_assert(T % 4 == 0, "a view's rows in a tile fill float4s");
 
 __host__ __device__ constexpr int pad4(int o) { return (o + 3) / 4 * 4; }
 
@@ -59,52 +72,290 @@ constexpr int kPackTotal = b_off(10);
 static_assert(kPackTotal % 4 == 0, "weight pack must be float4 sized");
 constexpr int kBase0W = w_off(4), kBase0B = b_off(4);   // base_fc.0
 
-// shared memory (floats) after the weight pack
-constexpr int kMbuf = kPackTotal;              // mask      [V][R]
-constexpr int kW0buf = kMbuf + V * R;          // w0        [V][R]
-constexpr int kWbuf = kW0buf + V * R;          // weight    [V][R]
-constexpr int kVisbuf = kWbuf + V * R;         // vis       [V][R]
-constexpr int kRfbuf = kVisbuf + V * R;        // rf [V][35][R], later x [V][32][R]
-constexpr int kGf = kRfbuf + V * C_RGBF * R;   // gf        [140][R]
-constexpr int kGfW = kGf + C_GF * R;           // gf part of base_fc.0 [64][R]
-constexpr int kSmemFloats = kGfW + 64 * R;
+// shared memory (floats) after the weight pack; every buffer float4 aligned.
+constexpr int C_IN = C_RGBF + C_NEUR + C_DIFF + 1;   // 72
+constexpr int kIn = kPackTotal;       // [72][MP] rf | neur | rd | mask
+constexpr int kRH = kIn + C_IN * MP;  // [64][MP] h64 (first the gf block's
+                                      // parts); later a32, then feat rows
+constexpr int kRX = kRH + 64 * MP;    // [32][MP] h16 | h8, then gf [140][T];
+                                      // later x
+constexpr int kVec = kRX + 32 * MP;   // [5][MP] mask, weight, w0, vis1, vis
+constexpr int kSmemFloats = kVec + 5 * MP;
 constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
+static_assert(kSmemBytes <= 232448, "over the 227 KB a block may take");
+static_assert(C_GF * T <= C_X * MP && T * C_OUT <= 64 * MP,
+              "scratch too small");
 
-__device__ __forceinline__ float elu(float x) { return x > 0.0f ? x : expm1f(x); }
-__device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
+enum { kNone, kElu, kSigm, kEluSigm };    // activation; kEluSigm = sigm(elu)
+enum { kDstNone, kDstInit, kDstRes };     // out added before / after it
 
-// acc[0..O4) += in[0..I) @ W, W in shared memory as [I][O4]
-template <int I, int O4, int NI>
-__device__ __forceinline__ void dense(const float (&in)[NI], float (&acc)[O4],
-                                      const float* __restrict__ W) {
-  static_assert(I <= NI && O4 % 4 == 0, "bad layer shape");
+// The hardware exponential (ex2.approx, a few ulp): ELU's exp(x) - 1 then
+// errs by ~1e-7 absolute, far inside the kernel's 1e-4 tolerance, at a
+// fraction of expm1f's instructions (the epilogues hold ~250 of them per
+// (row, view)).
+__device__ __forceinline__ float elu(float x) {
+  return x > 0.0f ? x : __expf(x) - 1.0f;
+}
+__device__ __forceinline__ float sigm(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void unpack(const float4 t, float* r) {
+  r[0] = t.x; r[1] = t.y; r[2] = t.z; r[3] = t.w;
+}
+
+// How tile_linear cuts an MC-column x O-output product: a thread holds 4
+// columns x RO outputs, a warp (32/LO column lanes x LO output lanes) a
+// 128/LO-column x LO*RO-output tile. RO = 8 halves the shared-memory reads
+// per FMA where that still gives every warp a tile; RO = 1 for a single
+// output. Else RO = 4, with the lane split that needs fewer warp tiles.
+struct Shape {
+  int ro, lo;
+};
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int warp_tiles(int O, int MC, Shape s) {
+  return cdiv(MC / 4, 32 / s.lo) * cdiv(cdiv(pad4(O), s.ro), s.lo);
+}
+__host__ __device__ constexpr Shape tile_shape(int O, int MC) {
+  return O == 1 ? Shape{1, 1}
+       : pad4(O) % 32 == 0 && warp_tiles(O, MC, Shape{8, 4}) >= kWarps
+           ? Shape{8, 4}
+       : MC / 4 % 16 == 0 &&
+               warp_tiles(O, MC, Shape{4, 2}) < warp_tiles(O, MC, Shape{4, 4})
+           ? Shape{4, 2}
+           : Shape{4, 4};
+}
+
+// out[o][m] = epilogue(sum_i A[i][m] W[i][o]) for o < O, m < MC, by the
+// block. A is [I][lda], out [O][ldo] (shared memory, float4 aligned), W
+// I rows of LDW floats from the pack. Epilogue, in this order: times
+// pre[m], plus bias[o], plus out[o][m] (kDstInit), activation, times
+// post[m], plus out[o][m] (kDstRes); null pointers skip their step. Warp
+// tiles are dealt out from warp `rot` on, so that independent calls can
+// share a phase.
+template <int I, int O, int MC, int ACT, int DST, int LDW = pad4(O)>
+__device__ __forceinline__ void tile_linear(
+    const float* __restrict__ A, int lda, const float* __restrict__ W,
+    const float* bias, float* out, int ldo, const float* pre,
+    const float* post, int rot = 0) {
+  constexpr Shape S = tile_shape(O, MC);
+  constexpr int RO = S.ro, LO = S.lo, LM = 32 / LO;
+  constexpr int NM = MC / 4, NO = cdiv(pad4(O), RO);   // thread tiles
+  constexpr int WM = cdiv(NM, LM), WO = cdiv(NO, LO);   // warp tiles
+  static_assert(MC % 4 == 0 && LDW % 4 == 0, "float4 rows");
+  const int lane = threadIdx.x % 32;
+  const int first = (threadIdx.x / 32 + kWarps - rot) % kWarps;
+  for (int wt = first; wt < WM * WO; wt += kWarps) {
+    const int mq = (wt % WM) * LM + lane % LM;
+    const int oq = (wt / WM) * LO + lane / LM;
+    if (mq >= NM || oq >= NO) continue;
+    const float* a = A + 4 * mq;
+    const float* w = W + RO * oq;
+    float acc[4][RO] = {};
+#pragma unroll 8
+    for (int i = 0; i < I; ++i) {
+      float ar[4], wr[RO];
+      unpack(ld4(a + i * lda), ar);
+      if (RO == 1) {
+        wr[0] = w[i * LDW];
+      } else {
 #pragma unroll
-  for (int i = 0; i < I; ++i) {
-    const float xi = in[i];
+        for (int k = 0; k < RO; k += 4) unpack(ld4(w + i * LDW + k), wr + k);
+      }
 #pragma unroll
-    for (int o = 0; o < O4; o += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(W + i * O4 + o);
-      acc[o] = fmaf(w.x, xi, acc[o]);
-      acc[o + 1] = fmaf(w.y, xi, acc[o + 1]);
-      acc[o + 2] = fmaf(w.z, xi, acc[o + 2]);
-      acc[o + 3] = fmaf(w.w, xi, acc[o + 3]);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int k = 0; k < RO; ++k) acc[j][k] = fmaf(ar[j], wr[k], acc[j][k]);
+    }
+    float p[4] = {1.0f, 1.0f, 1.0f, 1.0f}, q[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+    if (pre) unpack(ld4(pre + 4 * mq), p);
+    if (post) unpack(ld4(post + 4 * mq), q);
+#pragma unroll
+    for (int k = 0; k < RO; ++k) {
+      const int o = RO * oq + k;
+      if (o >= O) break;
+      float* dst = out + o * ldo + 4 * mq;
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (DST != kDstNone) unpack(ld4(dst), d);
+      const float b = bias ? bias[o] : 0.0f;
+      float y[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float s = acc[j][k];
+        if (pre) s *= p[j];
+        s += b;
+        if (DST == kDstInit) s += d[j];
+        if (ACT == kElu) s = elu(s);
+        if (ACT == kSigm) s = sigm(s);
+        if (ACT == kEluSigm) s = sigm(elu(s));
+        if (post) s *= q[j];
+        if (DST == kDstRes) s += d[j];
+        y[j] = s;
+      }
+      *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
     }
   }
 }
 
-// acc = bias of layer L, then acc += in @ W_L; optional ELU
-template <int L, int NI>
-__device__ __forceinline__ void layer(const float* sW, const float (&in)[NI],
-                                      float (&acc)[pad4(layer_out(L))], bool act) {
-  constexpr int O4 = pad4(layer_out(L));
-  constexpr int kB = b_off(L), kW = w_off(L);
+// Layer L of the pack over all M row-views, [C][MP] in and out
+template <int L, int ACT, int DST = kDstNone>
+__device__ __forceinline__ void layer(const float* sW, const float* A,
+                                      float* out, const float* pre,
+                                      const float* post, int rot = 0) {
+  tile_linear<layer_in(L), layer_out(L), M, ACT, DST>(
+      A, MP, sW + w_off(L), sW + b_off(L), out, MP, pre, post, rot);
+}
+
+// Tile I/O of a [V,N,C] input: rows n0..n0+T-1 of every view are one
+// contiguous block of Q = T*C/4 float4s. fetch() reads this thread's
+// float4s of them (consecutive threads, consecutive float4s; zero past N;
+// K per thread, all in flight at once), scatter() writes them
+// channel-major, dst[c][v*T + r]. Needs 16-byte aligned inputs and
+// N % 4 == 0, so that every block and the live part of the last one are
+// whole, aligned float4s.
+template <int C>
+struct TileIn {
+  static constexpr int Q = T * C / 4;
+  static constexpr int K = (V * Q + kThreads - 1) / kThreads;
+  float4 buf[K];
+
+  __device__ __forceinline__ void fetch(const float* __restrict__ src, int n0,
+                                        int N) {
+    const int live = (N - n0 < T ? N - n0 : T) * C;
 #pragma unroll
-  for (int o = 0; o < O4; ++o) acc[o] = sW[kB + o];
-  dense<layer_in(L), O4>(in, acc, sW + kW);
-  if (act) {
-#pragma unroll
-    for (int o = 0; o < O4; ++o) acc[o] = elu(acc[o]);
+    for (int k = 0; k < K; ++k) {
+      const int g = threadIdx.x + k * kThreads, v = g / Q, e = 4 * (g % Q);
+      buf[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (g < V * Q && e < live)
+        buf[k] = __ldg(reinterpret_cast<const float4*>(
+            src + (static_cast<long long>(v) * N + n0) * C + e));
+    }
   }
+  __device__ __forceinline__ void scatter(float* dst) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int g = threadIdx.x + k * kThreads, e = 4 * (g % Q);
+      if (g >= V * Q) break;
+      float f[4];
+      unpack(buf[k], f);
+      int r = e / C, c = e % C;
+      float* d = dst + g / Q * T;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        d[c * MP + r] = f[j];
+        if (++c == C) c = 0, ++r;
+      }
+    }
+  }
+};
+
+// The same for any N, a float at a time
+template <int C>
+__device__ __forceinline__ void load_tile_scalar(const float* __restrict__ src,
+                                                 float* dst, int n0, int N) {
+  const int live = (N - n0 < T ? N - n0 : T) * C;
+#pragma unroll 4
+  for (int g = threadIdx.x; g < V * T * C; g += kThreads) {
+    const int v = g / (T * C), e = g % (T * C);
+    dst[e % C * MP + v * T + e / C] =
+        e < live ? __ldg(src + (static_cast<long long>(v) * N + n0) * C + e)
+                 : 0.0f;
+  }
+}
+
+// A tile's four inputs: all their float4 reads in flight at once (fetch),
+// then written into IN (scatter)
+struct Inputs {
+  TileIn<C_RGBF> a;
+  TileIn<C_NEUR> b;
+  TileIn<C_DIFF> c;
+  TileIn<1> d;
+
+  __device__ __forceinline__ void fetch(const float* rgbf, const float* neur,
+                                        const float* rdiff, const float* mask,
+                                        int tile, int N) {
+    a.fetch(rgbf, tile * T, N);
+    b.fetch(neur, tile * T, N);
+    c.fetch(rdiff, tile * T, N);
+    d.fetch(mask, tile * T, N);
+  }
+  __device__ __forceinline__ void scatter(float* in) const {
+    a.scatter(in);
+    b.scatter(in + C_RGBF * MP);
+    c.scatter(in + (C_RGBF + C_NEUR) * MP);
+    d.scatter(in + (C_IN - 1) * MP);
+  }
+};
+
+// Tile `tile`'s inputs into IN, for any N
+__device__ __forceinline__ void load_inputs_scalar(
+    const float* rgbf, const float* neur, const float* rdiff,
+    const float* mask, float* in, int tile, int N) {
+  load_tile_scalar<C_RGBF>(rgbf, in, tile * T, N);
+  load_tile_scalar<C_NEUR>(neur, in + C_RGBF * MP, tile * T, N);
+  load_tile_scalar<C_DIFF>(rdiff, in + (C_RGBF + C_NEUR) * MP, tile * T, N);
+  load_tile_scalar<1>(mask, in + (C_IN - 1) * MP, tile * T, N);
+}
+
+// Ask L2 for tile `tile`'s inputs (one bulk prefetch per array and view,
+// its ends rounded down to 16 bytes, so never past the tensor), so that the
+// tile's loads find them there
+__device__ __forceinline__ void prefetch_inputs(
+    const float* rgbf, const float* neur, const float* rdiff,
+    const float* mask, int tile, int N) {
+  if (threadIdx.x >= 4 * V) return;
+  const int k = threadIdx.x / V, v = threadIdx.x % V;
+  const float* src = k == 0 ? rgbf : k == 1 ? neur : k == 2 ? rdiff : mask;
+  const int C = k == 0 ? C_RGBF : k == 1 ? C_NEUR : k == 2 ? C_DIFF : 1;
+  const int n0 = tile * T, rows = N - n0 < T ? N - n0 : T;
+  const long long first = (static_cast<long long>(v) * N + n0) * C;
+  const size_t lo = reinterpret_cast<size_t>(src + first) & ~size_t{15};
+  const size_t hi =
+      reinterpret_cast<size_t>(src + first + rows * C) & ~size_t{15};
+  if (hi > lo)
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+                 :: "l"(lo), "r"(static_cast<unsigned>(hi - lo)) : "memory");
+}
+
+// x [32][MP] -> xout [V,N,32] and vis [MP] -> visout [V,N,1], rows n0..,
+// rows past N skipped; x as float4s (4 channels of one row-view)
+__device__ __forceinline__ void store_x_vis(const float* x, const float* vis,
+                                            float* __restrict__ xout,
+                                            float* __restrict__ visout,
+                                            int n0, int N) {
+  const int rows = N - n0 < T ? N - n0 : T;
+  constexpr int Q = T * C_X / 4;
+#pragma unroll 4
+  for (int g = threadIdx.x; g < V * Q; g += kThreads) {
+    const int v = g / Q, e = 4 * (g % Q), r = e / C_X, c = e % C_X;
+    if (r >= rows) continue;
+    const float* s = x + c * MP + v * T + r;
+    float* d = xout + (static_cast<long long>(v) * N + n0) * C_X + e;
+    *reinterpret_cast<float4*>(d) =
+        make_float4(s[0], s[MP], s[2 * MP], s[3 * MP]);
+  }
+  for (int m = threadIdx.x; m < M; m += kThreads)
+    if (m % T < rows)
+      visout[static_cast<long long>(m / T) * N + n0 + m % T] = vis[m];
+}
+
+// base_fc.0's gf block over the T rows, split over its 140 input channels
+// into kGfParts partial products (part p in columns p*T.. of h) so that
+// more warps share it; the caller sums the parts in order.
+constexpr int kGfParts = 2, kGfK = 70;
+static_assert(kGfParts * kGfK >= C_GF && kGfParts <= V, "gf block split");
+template <int P>
+__device__ __forceinline__ void gf_block(const float* sW, const float* gf,
+                                         float* h) {
+  constexpr int K0 = P * kGfK, K = C_GF - K0 < kGfK ? C_GF - K0 : kGfK;
+  tile_linear<K, 64, T, kNone, kDstNone>(
+      gf + K0 * T, T, sW + kBase0W + K0 * 64, P == 0 ? sW + kBase0B : nullptr,
+      h + P * T, MP, nullptr, nullptr, P * kWarps / kGfParts);
+  if constexpr (P + 1 < kGfParts) gf_block<P + 1>(sW, gf, h);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -112,170 +363,166 @@ view_fuse_kernel(const float* __restrict__ rgbf, const float* __restrict__ neur,
                  const float* __restrict__ rdiff, const float* __restrict__ mask,
                  const float* __restrict__ wpack,
                  float* __restrict__ feat_const, float* __restrict__ num_valid,
-                 float* __restrict__ xout, float* __restrict__ visout, int N) {
+                 float* __restrict__ xout, float* __restrict__ visout, int N,
+                 bool vec) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const float* sW = smem;
-  float* mbuf = smem + kMbuf;
-  float* w0buf = smem + kW0buf;
-  float* wbuf = smem + kWbuf;
-  float* visbuf = smem + kVisbuf;
-  float* rfbuf = smem + kRfbuf;
-  float* xbuf = smem + kRfbuf;   // reuses rfbuf once gf is built
-  float* gf = smem + kGf;
-  float* gfW = smem + kGfW;
+  float* rf = smem + kIn;              // [35][MP], then neur [32][MP]
+  float* nr = rf + C_RGBF * MP;
+  float* rd = nr + C_NEUR * MP;        // [4][MP]
+  const float* mk_in = rd + C_DIFF * MP;
+  float* h = smem + kRH;               // h64 [64][MP]
+  float* a32 = smem + kRH;             // [32][MP] once h64 is dead
+  float* stage = smem + kRH;           // feat_const rows [T][65] at the end
+  float* h16 = smem + kRX;             // [16][MP]
+  float* h8 = h16 + 16 * MP;           // [8][MP]
+  float* gf = smem + kRX;              // [140][T] once h16, h8 are dead
+  float* x = smem + kRX;               // [32][MP] once gf is dead
+  float* mk = smem + kVec;
+  float* wt = mk + MP;
+  float* w0 = wt + MP;
+  float* vis1 = w0 + MP;
+  float* vis = vis1 + MP;
 
+  // the weights, once per block; the loop's first barrier publishes them
   for (int i = threadIdx.x; i < kPackTotal / 4; i += kThreads)
     smem4[i] = reinterpret_cast<const float4*>(wpack)[i];
-  __syncthreads();
 
-  const int v = threadIdx.x / R;
-  const int r = threadIdx.x % R;
-  const int ntiles = (N + R - 1) / R;
-
+  const int ntiles = (N + T - 1) / T;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int n = tile * R + r;
-    const bool live = n < N;
-    const long long vn = static_cast<long long>(v) * N + n;
-
-    // ---- phase 1: per-view ray-dir and neuray MLPs
-    float rd[C_DIFF], rf[pad4(C_RGBF)], nr[C_NEUR];
-    float m = 0.0f;
-#pragma unroll
-    for (int c = 0; c < C_DIFF; ++c) rd[c] = live ? rdiff[vn * C_DIFF + c] : 0.0f;
-#pragma unroll
-    for (int c = 0; c < C_NEUR; ++c) nr[c] = live ? neur[vn * C_NEUR + c] : 0.0f;
-    if (live) m = mask[vn];
-
-    float h16[16];
-    layer<0>(sW, rd, h16, true);
-    layer<1>(sW, h16, rf, true);   // df, then rf = rgbf + df
-#pragma unroll
-    for (int c = 0; c < C_RGBF; ++c) rf[c] += live ? rgbf[vn * C_RGBF + c] : 0.0f;
-    rf[C_RGBF] = 0.0f;
-
-    float h8[8], s4[4];
-    layer<2>(sW, nr, h8, true);
-    layer<3>(sW, h8, s4, false);
-    mbuf[v * R + r] = m;
+    const int n0 = tile * T;
+    // nothing reads IN after base_fc.0, so the copy needs no barrier first
+    if (vec) {
+      Inputs in;
+      in.fetch(rgbf, neur, rdiff, mask, tile, N);
+      in.scatter(rf);
+    } else {
+      load_inputs_scalar(rgbf, neur, rdiff, mask, rf, tile, N);
+    }
+    if (tile + gridDim.x < ntiles)
+      prefetch_inputs(rgbf, neur, rdiff, mask, tile + gridDim.x, N);
     __syncthreads();
 
-    float nv = 0.0f;
+    // mask-normalised weight and num_valid; ray_dir_fc.0
+    for (int m = threadIdx.x; m < M; m += kThreads) {
+      const int r = m % T;
+      float nv = 0.0f;
 #pragma unroll
-    for (int u = 0; u < V; ++u) nv += mbuf[u * R + r];
-    const float weight = m / (nv + 1e-8f);
-    w0buf[v * R + r] = sigm(s4[0]) * weight;
-    wbuf[v * R + r] = weight;
-#pragma unroll
-    for (int c = 0; c < C_RGBF; ++c) rfbuf[(v * C_RGBF + c) * R + r] = rf[c];
+      for (int u = 0; u < V; ++u) nv += mk_in[u * T + r];
+      mk[m] = mk_in[m];
+      wt[m] = mk_in[m] * (1.0f / (nv + 1e-8f));
+      if (m < T && n0 + m < N) num_valid[n0 + m] = nv;
+    }
+    layer<0, kElu>(sW, rd, h16, nullptr, nullptr);            // 6 warp tiles
+    layer<2, kElu>(sW, nr, h8, nullptr, nullptr, kWarps / 2);  // 3
+    __syncthreads();
+    layer<1, kElu, kDstRes>(sW, h16, rf, nullptr, nullptr);   // rf = rgbf + df
+    layer<3, kSigm>(sW, h8, w0, nullptr, wt, kWarps / 4);     // w0, weighted
     __syncthreads();
 
-    // ---- phase 2: gf = [mean0 | var0 | mean1 | var1], 140 stats per row
-    // split over the six warps
-    for (int k = v; k < C_GF; k += V) {
-      const int which = k / C_RGBF;
-      const int c = k % C_RGBF;
-      const float* w = which < 2 ? w0buf : wbuf;
-      float mean = 0.0f;
+    // gf = [mean0 | var0 | mean1 | var1] per row, [140][T]
+    for (int g = threadIdx.x; g < C_RGBF * T; g += kThreads) {
+      const int c = g / T, r = g % T;
+      float f[V];
 #pragma unroll
-      for (int u = 0; u < V; ++u)
-        mean += rfbuf[(u * C_RGBF + c) * R + r] * w[u * R + r];
-      float out = mean;
-      if (which & 1) {
-        float var = 0.0f;
+      for (int u = 0; u < V; ++u) f[u] = rf[c * MP + u * T + r];
 #pragma unroll
-        for (int u = 0; u < V; ++u) {
-          const float d = rfbuf[(u * C_RGBF + c) * R + r] - mean;
-          var += w[u * R + r] * (d * d);
-        }
-        out = var;
+      for (int s = 0; s < 2; ++s) {
+        const float* w = s == 0 ? w0 : wt;
+        float mean = 0.0f, var = 0.0f;
+#pragma unroll
+        for (int u = 0; u < V; ++u) mean += f[u] * w[u * T + r];
+#pragma unroll
+        for (int u = 0; u < V; ++u)
+          var += w[u * T + r] * ((f[u] - mean) * (f[u] - mean));
+        gf[(2 * s * C_RGBF + c) * T + r] = mean;
+        gf[((2 * s + 1) * C_RGBF + c) * T + r] = var;
       }
-      gf[k * R + r] = out;
     }
     __syncthreads();
 
-    // ---- phase 3: gf block of base_fc.0 (+ its bias), once per row
-    for (int o = v; o < 64; o += V) {
-      float acc = sW[kBase0B + o];
-      const float* W = sW + kBase0W + o;
-      for (int i = 0; i < C_GF; ++i) acc = fmaf(W[i * 64], gf[i * R + r], acc);
-      gfW[o * R + r] = acc;
+    // base_fc.0: its gf block (+ bias) once per row, then the per-view
+    // rf | neur block on top
+    gf_block<0>(sW, gf, h);
+    __syncthreads();
+    for (int g = threadIdx.x; g < 64 * T; g += kThreads) {
+      float* row = h + (g / T) * MP + g % T;   // this thread owns (o, r)
+      float s = 0.0f;
+#pragma unroll
+      for (int p = 0; p < kGfParts; ++p) s += row[p * T];
+#pragma unroll
+      for (int v = 0; v < V; ++v) row[v * T] = s;
     }
     __syncthreads();
-
-    // ---- phase 4: rest of base_fc, vis_fc, vis_fc2 per view
-    float h64[64];
-#pragma unroll
-    for (int o = 0; o < 64; ++o) h64[o] = gfW[o * R + r];
-    dense<C_RGBF, 64>(rf, h64, sW + kBase0W + C_GF * 64);
-    dense<C_NEUR, 64>(nr, h64, sW + kBase0W + (C_GF + C_RGBF) * 64);
-#pragma unroll
-    for (int o = 0; o < 64; ++o) h64[o] = elu(h64[o]);
-    float x[C_X], t32[C_X], xv[pad4(C_X + 1)];
-    layer<5>(sW, h64, x, true);
-#pragma unroll
-    for (int c = 0; c < C_X; ++c) t32[c] = x[c] * weight;
-    float a32[C_X];
-    layer<6>(sW, t32, a32, true);
-    layer<7>(sW, a32, xv, true);
-#pragma unroll
-    for (int c = 0; c < C_X; ++c) x[c] += xv[c];
-    const float vis1 = sigm(xv[C_X]) * m;
-#pragma unroll
-    for (int c = 0; c < C_X; ++c) t32[c] = x[c] * vis1;
-    layer<8>(sW, t32, a32, true);
-    layer<9>(sW, a32, s4, false);
-    const float vis = sigm(s4[0]) * m;
-
-    if (live) {
-      float4* xo = reinterpret_cast<float4*>(xout + vn * C_X);
-#pragma unroll
-      for (int c = 0; c < C_X; c += 4)
-        xo[c / 4] = make_float4(x[c], x[c + 1], x[c + 2], x[c + 3]);
-      visout[vn] = vis;
-    }
-#pragma unroll
-    for (int c = 0; c < C_X; ++c) xbuf[(v * C_X + c) * R + r] = x[c];
-    visbuf[v * R + r] = vis;
+    tile_linear<C_RGBF + C_NEUR, 64, M, kElu, kDstInit>(
+        rf, MP, sW + kBase0W + C_GF * 64, nullptr, h, MP, nullptr, nullptr);
     __syncthreads();
 
-    // ---- phase 5: visibility-weighted mean/var of x -> feat_const
-    float vsum = 0.0f;
+    layer<5, kElu>(sW, h, x, nullptr, nullptr);
+    __syncthreads();
+    layer<6, kElu>(sW, x, a32, wt, nullptr);      // vis_fc.0 on x * weight
+    __syncthreads();
+    // vis_fc.2 as its first 32 outputs (x += xv[:32]) and its last, the
+    // visibility logit: vis1 = sigmoid(elu(.)) * mask
+    tile_linear<C_X, C_X, M, kElu, kDstRes, pad4(C_X + 1)>(
+        a32, MP, sW + w_off(7), sW + b_off(7), x, MP, nullptr, nullptr);
+    tile_linear<C_X, 1, M, kEluSigm, kDstNone, pad4(C_X + 1)>(
+        a32, MP, sW + w_off(7) + C_X, sW + b_off(7) + C_X, vis1, MP, nullptr,
+        mk, kWarps - 2);
+    __syncthreads();
+    layer<8, kElu>(sW, x, a32, vis1, nullptr);     // vis_fc2.0 on x * vis1
+    __syncthreads();
+    layer<9, kSigm>(sW, a32, vis, nullptr, mk);    // vis = sigmoid(.) * mask
+    __syncthreads();
+
+    // x and vis out; visibility re-normalised over the views (w2);
+    // w2-weighted mean | var of x | mean of w2 -> feat_const rows [T][65]
+    store_x_vis(x, vis, xout, visout, n0, N);
+    for (int g = threadIdx.x; g < (C_X + 1) * T; g += kThreads) {
+      const int c = g / T, r = g % T;
+      float vsum = 0.0f, w2[V];
 #pragma unroll
-    for (int u = 0; u < V; ++u) vsum += visbuf[u * R + r];
-    float w2[V];
+      for (int u = 0; u < V; ++u) vsum += vis[u * T + r];
+      const float inv = 1.0f / (vsum + 1e-8f);
 #pragma unroll
-    for (int u = 0; u < V; ++u) w2[u] = visbuf[u * R + r] / (vsum + 1e-8f);
-    for (int k = v; k < C_OUT; k += V) {
-      float out = 0.0f;
-      if (k == 2 * C_X) {   // mean over views of the weights
+      for (int u = 0; u < V; ++u) w2[u] = vis[u * T + r] * inv;
+      if (c == C_X) {
+        float s = 0.0f;
 #pragma unroll
-        for (int u = 0; u < V; ++u) out += w2[u];
-        out = out / static_cast<float>(V);
-      } else {
-        const int c = k % C_X;
-        float mean = 0.0f;
-#pragma unroll
-        for (int u = 0; u < V; ++u) mean += xbuf[(u * C_X + c) * R + r] * w2[u];
-        out = mean;
-        if (k >= C_X) {
-          float var = 0.0f;
-#pragma unroll
-          for (int u = 0; u < V; ++u) {
-            const float d = xbuf[(u * C_X + c) * R + r] - mean;
-            var += w2[u] * (d * d);
-          }
-          out = var;
-        }
+        for (int u = 0; u < V; ++u) s += w2[u];
+        stage[r * C_OUT + 2 * C_X] = s * (1.0f / V);
+        continue;
       }
-      if (live) feat_const[static_cast<long long>(n) * C_OUT + k] = out;
+      float f[V], mean = 0.0f, var = 0.0f;
+#pragma unroll
+      for (int u = 0; u < V; ++u) f[u] = x[c * MP + u * T + r];
+#pragma unroll
+      for (int u = 0; u < V; ++u) mean += f[u] * w2[u];
+#pragma unroll
+      for (int u = 0; u < V; ++u) var += w2[u] * ((f[u] - mean) * (f[u] - mean));
+      stage[r * C_OUT + c] = mean;
+      stage[r * C_OUT + C_X + c] = var;
     }
-    if (v == 0 && live) num_valid[n] = nv;
-    __syncthreads();   // the next tile overwrites the exchange buffers
+    __syncthreads();
+
+    // the next iteration's barrier keeps its writes behind these reads
+    const int total = (N - n0 < T ? N - n0 : T) * C_OUT;
+    float* fo = feat_const + static_cast<long long>(n0) * C_OUT;   // 16 B aligned
+    for (int g = threadIdx.x; g < total / 4; g += kThreads)
+      *reinterpret_cast<float4*>(fo + 4 * g) = ld4(stage + 4 * g);
+    for (int g = total / 4 * 4 + threadIdx.x; g < total; g += kThreads)
+      fo[g] = stage[g];
   }
 }
 
 }  // namespace
+
+// Floats in the weight pack the kernel reads (ops/view_fuse.py PACK_FLOATS)
+extern "C" int view_fuse_pack_floats() { return kPackTotal; }
+
+// Rows per tile: the kernel's ragged edge lies at multiples of it
+extern "C" int view_fuse_tile_rows() { return T; }
 
 extern "C" int view_fuse_forward(const float* rgbf, const float* neur,
                                  const float* rdiff, const float* mask,
@@ -294,10 +541,16 @@ extern "C" int view_fuse_forward(const float* rgbf, const float* neur,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, view_fuse_kernel, kThreads, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ntiles = (N + R - 1) / R;
+  const int ntiles = (N + T - 1) / T;
   int blocks = sms * (per_sm > 0 ? per_sm : 1);
   if (blocks > ntiles) blocks = ntiles;
+  const size_t addr = reinterpret_cast<size_t>(rgbf) |
+                      reinterpret_cast<size_t>(neur) |
+                      reinterpret_cast<size_t>(rdiff) |
+                      reinterpret_cast<size_t>(mask);
+  const bool vec = N % 4 == 0 && addr % 16 == 0;   // float4 tile loads
   view_fuse_kernel<<<blocks, kThreads, kSmemBytes, stream>>>(
-      rgbf, neur, rdiff, mask, wpack, feat_const, num_valid, xout, visout, N);
+      rgbf, neur, rdiff, mask, wpack, feat_const, num_valid, xout, visout, N,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,18 @@ W_NAMES = ("ray_dir_fc.0", "ray_dir_fc.2", "neuray_fc.0", "neuray_fc.2",
 LAYER_DIMS = ((4, 16), (16, 35), (32, 8), (8, 1), (207, 64), (64, 32),
               (32, 32), (32, 33), (32, 32), (32, 1))
 
+
+def _pad4(o: int) -> int:
+    return -(-o // 4) * 4
+
+
+# Floats in pack_weights' buffer; the kernel library states its own
+# (view_fuse_pack_floats) and the wrapper refuses a library that differs.
+PACK_FLOATS = sum((i + 1) * _pad4(o) for i, o in LAYER_DIMS)
+
 Pair = Tuple[torch.Tensor, torch.Tensor]
+_lib = None
+_pack_cache: list = []   # [(weights, versions, device, pack)]
 
 
 def _weighted_mean_var(x, w):
@@ -77,10 +88,54 @@ def pack_weights(weights: Sequence[Pair]) -> torch.Tensor:
         if tuple(w.shape) != (o, i) or tuple(b.shape) != (o,):
             raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)}"
                              f" is not Linear({i}, {o})")
-        o4 = -(-o // 4) * 4
+        o4 = _pad4(o)
         ws.append(F.pad(w.detach().t(), (0, o4 - o)).reshape(-1))
         bs.append(F.pad(b.detach(), (0, o4 - o)))
     return torch.cat(ws + bs).to(torch.float32).contiguous()
+
+
+def _packed(weights: Sequence[Pair], device) -> torch.Tensor:
+    """pack_weights(weights) on `device`, kept for the next call: packed
+    again only when a weight is another tensor or was changed in place (its
+    version counter moved). The kept tensors cannot be freed, so a new
+    weight never takes an old one's identity."""
+    flat = tuple(t for pair in weights for t in pair)
+    if any(t.is_inference() for t in flat):     # they keep no version
+        return pack_weights(weights).to(device)
+    versions = tuple(t._version for t in flat)
+    if _pack_cache:
+        kept, kept_versions, kept_device, pack = _pack_cache[0]
+        if (kept_device == device and kept_versions == versions
+                and len(kept) == len(flat)
+                and all(a is b for a, b in zip(kept, flat))):
+            return pack
+    pack = pack_weights(weights).to(device)
+    _pack_cache[:] = [(flat, versions, device, pack)]
+    return pack
+
+
+def check_pack(lib: ctypes.CDLL, pack_floats: int) -> None:
+    """Raise unless the kernel library reads a `pack_floats`-float pack."""
+    expect = lib.view_fuse_pack_floats()
+    if expect != pack_floats:
+        raise RuntimeError(f"view_fuse: the kernel reads a {expect}-float "
+                           f"weight pack, pack_weights gives {pack_floats}")
+
+
+def library(pack_floats: int = PACK_FLOATS) -> ctypes.CDLL:
+    """The kernel's library, checked against the pack size at first load."""
+    global _lib
+    if _lib is None:
+        lib = build.load("view_fuse")
+        for name in ("view_fuse_pack_floats", "view_fuse_tile_rows"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = []
+        check_pack(lib, pack_floats)
+        lib.view_fuse_forward.argtypes = ([ctypes.c_void_p] * 9
+                                          + [ctypes.c_int, ctypes.c_void_p])
+        lib.view_fuse_forward.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
 def _launch(rgbf, neur, rdiff, mask, weights: Sequence[Pair]):
@@ -94,16 +149,13 @@ def _launch(rgbf, neur, rdiff, mask, weights: Sequence[Pair]):
             raise TypeError("kernel takes contiguous float32 inputs")
         if t.device != rgbf.device:
             raise ValueError("all tensors must lie on one device")
-    wpack = pack_weights(weights).to(rgbf.device)
+    wpack = _packed(weights, rgbf.device)
     dev = dict(dtype=torch.float32, device=rgbf.device)
     feat_const = torch.empty((N, C_OUT), **dev)
     num_valid = torch.empty((N, 1), **dev)
     x = torch.empty((V, N, C_X), **dev)
     vis = torch.empty((V, N, 1), **dev)
-    lib = build.load("view_fuse")
-    fn = lib.view_fuse_forward
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = library(wpack.numel()).view_fuse_forward
     with torch.cuda.device(rgbf.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(rgbf.data_ptr(), neur.data_ptr(), rdiff.data_ptr(),

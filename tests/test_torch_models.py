@@ -23,7 +23,9 @@ from graspnerf_tpu.ops.pallas.ibrnet_fuse import view_fuse_reference
 
 from graspnerf_tpu_torch import models as TM
 from graspnerf_tpu_torch.convert import flax_to_state_dict
-from graspnerf_tpu_torch.ops.view_fuse import view_fuse, view_fuse_plain
+from graspnerf_tpu_torch.ops.view_fuse import (LAYER_DIMS, PACK_FLOATS,
+                                               _packed, pack_weights,
+                                               view_fuse, view_fuse_plain)
 
 V, H, W = 6, 64, 96
 
@@ -172,6 +174,49 @@ def test_view_fuse_plain_matches_reference(rng):
     close(got[1], want[1], 0)          # num_valid: exact
     for i in (0, 2, 3):
         close(got[i], want[i], 2e-5)
+
+
+def test_pack_weights_round_trip(rng):
+    """pack_weights' buffer, unpacked by the LAYER_DIMS offsets, gives back
+    every weight ([I][O4], transposed) and bias with zeros in the padding,
+    and its length is the PACK_FLOATS the wrapper holds the kernel to."""
+    pairs = [(torch.from_numpy(rng.randn(o, i).astype(np.float32)),
+              torch.from_numpy(rng.randn(o).astype(np.float32)))
+             for i, o in LAYER_DIMS]
+    pack = pack_weights(pairs)
+    assert pack.shape == (PACK_FLOATS,) and pack.dtype == torch.float32
+    off = 0
+    for (w, _), (i, o) in zip(pairs, LAYER_DIMS):
+        o4 = -(-o // 4) * 4
+        block = pack[off:off + i * o4].reshape(i, o4)
+        assert torch.equal(block[:, :o], w.t())
+        assert not block[:, o:].any()
+        off += i * o4
+    for (_, b), (i, o) in zip(pairs, LAYER_DIMS):
+        o4 = -(-o // 4) * 4
+        assert torch.equal(pack[off:off + o], b)
+        assert not pack[off + o:off + o4].any()
+        off += o4
+    assert off == PACK_FLOATS
+
+
+def test_pack_kept_until_weights_change(rng):
+    """The wrapper keeps the packed weights between calls, and packs again
+    when a weight changes in place or is another tensor."""
+    pairs = [(torch.from_numpy(rng.randn(o, i).astype(np.float32)),
+              torch.from_numpy(rng.randn(o).astype(np.float32)))
+             for i, o in LAYER_DIMS]
+    cpu = torch.device("cpu")
+    first = _packed(pairs, cpu)
+    assert _packed(pairs, cpu) is first
+    with torch.no_grad():
+        pairs[4][0].mul_(2.0)
+    changed = _packed(pairs, cpu)
+    assert changed is not first
+    assert torch.equal(changed, pack_weights(pairs))
+    copies = [(w.clone(), b.clone()) for w, b in pairs]
+    again = _packed(copies, cpu)
+    assert again is not changed and torch.equal(again, changed)
 
 
 def test_ibrnet_sdf_rgb_match_jax(rng):
