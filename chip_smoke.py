@@ -3,16 +3,20 @@
 NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
 
 1. builds both CUDA kernels from csrc/ (nvcc, all sources at once);
-2. holds each kernel against its plain PyTorch version at the volume path's
-   shapes (the view fuse also at ragged N around its row tile and through
-   its backward, after checking its weight-pack guard) and times it; the
-   view fuse also at the render pass's N;
+2. holds the view fuse against its plain PyTorch version at the volume
+   path's shapes, at ragged N around its row tile, with misaligned inputs
+   and through its backward, after checking its weight-pack guard, and
+   times it, also at the render pass's N;
 3. drives the planner (`GraspNeRFPlanner.core`) at full width -- six
    288 x 512 views, a 40^3 volume, every layer at the shipped widths, seeded
    random weights -- for a few planning calls, counts the kernel launches,
    and compares the volume, grasp-head outputs and candidates with the same
    planner on the plain versions on the same card;
-4. times the phases and the kernels with CUDA events.
+4. holds the gather against its plain version on the card (atol) and on
+   the CPU (bit-equal) on random and on the planner's own coordinates, at
+   ragged P around its block and with misaligned inputs and outputs, and
+   times it (wrapper and bare launch), also at the render pass's P;
+5. times the phases and the kernels with CUDA events.
 
 `--profile` adds a torch.profiler breakdown of a planning call by stage
 and by op. It prints a `kernels` JSON line, then as its last line
@@ -77,6 +81,19 @@ def cuda_time(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def host_time(fn, iters=200):
+    """Mean host ms per call of `fn` over `iters` calls, no synchronisation
+    inside: the time the caller's thread spends enqueueing."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -108,36 +125,20 @@ def gather_inputs(gen, dev, P=RES ** 3):
     y = torch.rand(VIEWS, P, generator=gen) * (HEIGHT + 40) - 20
     xy = torch.stack([x, y], -1)
     # exact borders, pixel centres, the validity bounds and points past them
-    xy[:, :8] = torch.tensor([
+    k = min(P, 8)
+    xy[:, :k] = torch.tensor([
         [-0.5, -0.5], [0.0, 0.0], [WIDTH - 1, HEIGHT - 1],
         [WIDTH - 0.5, HEIGHT - 0.5], [WIDTH - 1, 0.0], [0.0, HEIGHT - 1],
-        [WIDTH + 7.25, -9.5], [-30.0, HEIGHT + 30.0]])
+        [WIDTH + 7.25, -9.5], [-30.0, HEIGHT + 30.0]])[:k]
     valid = torch.rand(VIEWS, P, generator=gen) > 0.1
-    valid[:, :8] = True
+    valid[:, :k] = True
     return [t.to(dev) for t in (imgs, f1, f2, xy, valid)]
 
 
-def synthetic_views(rng):
-    """Six cameras on a hemisphere around the workspace, looking at its
-    centre; random images; the planner's default depth range."""
-    center = np.array([0.0, 0.0, 0.1])
-    f = 892.62 * WIDTH / 1280.0
-    K = np.array([[f, 0, (WIDTH - 1) / 2], [0, f, (HEIGHT - 1) / 2], [0, 0, 1]],
-                 np.float32)
-    poses = []
-    for i in range(VIEWS):
-        az, el = 2 * np.pi * i / VIEWS, np.deg2rad(40)
-        eye = center + 0.5 * np.array([np.cos(az) * np.cos(el),
-                                       np.sin(az) * np.cos(el), np.sin(el)])
-        fwd = (center - eye) / np.linalg.norm(center - eye)
-        right = np.cross(fwd, [0.0, 0.0, 1.0])
-        right /= np.linalg.norm(right)
-        R = np.stack([right, np.cross(fwd, right), fwd])
-        poses.append(np.concatenate([R, (-R @ eye)[:, None]], 1))
-    imgs = rng.rand(VIEWS, HEIGHT, WIDTH, 3).astype(np.float32)
-    dr = np.tile(np.array([[0.2, 0.8]], np.float32), (VIEWS, 1))
-    return (imgs, np.stack(poses).astype(np.float32),
-            np.tile(K[None], (VIEWS, 1, 1)), dr)
+def shifted(t):
+    """The same values one element past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return out[1:].view_as(t).copy_(t)
 
 
 # ----------------------------------------------------------------- phases
@@ -170,10 +171,6 @@ def check_view_fuse(dev, gen):
     log(f"view_fuse: the kernel reads a {lib.view_fuse_pack_floats()}-float "
         f"pack = pack_weights' {n_pack}; {n_pack + 4} is refused; tiles of "
         f"{tile} rows")
-
-    def shifted(t):   # the same values one float past a 16-byte boundary
-        out = torch.empty(t.numel() + 1, device=t.device)[1:].view_as(t)
-        return out.copy_(t)
 
     errs = {}
     for n in (1, tile - 1, tile + 1, 1000, RES ** 3, "1000 shifted"):
@@ -230,50 +227,98 @@ def check_view_fuse(dev, gen):
             **times[RES ** 3]}
 
 
-def check_gather(dev, gen):
-    import torch.nn.functional as F
-    from graspnerf_tpu_torch.ops.epipolar_gather import (
-        epipolar_gather, epipolar_gather_plain)
-    args = gather_inputs(gen, dev)
-    got = epipolar_gather(*args)
-    torch.cuda.synchronize()
-    want = epipolar_gather_plain(*args)
-    err = max(max_err(g, w) for g, w in zip(got, want))
-    for g, w in zip(got, want):
-        check(torch.allclose(g, w, atol=GATHER_ATOL, rtol=0),
-              f"epipolar_gather: max err {max_err(g, w)}")
-    check(bool((got[1][~args[4]] == 0).all()), "gather: invalid points not 0")
-    # the plain version on the CPU divides exactly as the kernel does
-    cpu = epipolar_gather_plain(*[t.cpu() for t in args])
-    log(f"epipolar_gather P={RES ** 3}: max_abs_err {err:.3e} vs the plain "
-        f"version on the card (atol {GATHER_ATOL}); bit-equal to it on the CPU: "
-        f"{all(torch.equal(g.cpu(), c) for g, c in zip(got, cpu))}")
+def planner_gather_inputs(planner, scene):
+    """The gather's inputs on the main path: the scene's images, the maps
+    from `encode`, and the volume grid projected into the views."""
+    from graspnerf_tpu_torch.tools.scene import volume_coords
+    ref = planner.scene(*scene)
+    img_feats, ray_feats = planner.encode(ref["imgs"])
+    xy, valid = volume_coords(ref["poses"], ref["Ks"], HEIGHT, WIDTH, RES)
+    return [ref["imgs"], img_feats, ray_feats, xy, valid]
 
-    ms = cuda_time(lambda: epipolar_gather(*args))
-    plain_ms = cuda_time(lambda: epipolar_gather_plain(*args))
-    # yardstick: three F.grid_sample calls on NCHW maps with the grids
-    # normalised beforehand (the port never calls it)
-    imgs, f1, f2, xy, valid = args
+
+def gather_library(args):
+    """Yardstick, which the port never calls: three F.grid_sample calls on
+    NCHW maps, the grids normalised beforehand."""
+    import torch.nn.functional as F
+    imgs, f1, f2, xy, _ = args
     maps = [m.permute(0, 3, 1, 2).contiguous() for m in (imgs, f1, f2)]
     g = torch.stack([xy[..., 0] / (WIDTH - 1) * 2 - 1,
                      xy[..., 1] / (HEIGHT - 1) * 2 - 1], -1)[:, None]
+    return lambda: [F.grid_sample(m, g, mode="bilinear", padding_mode="border",
+                                  align_corners=(i == 0))
+                    for i, m in enumerate(maps)]
 
-    def library():
-        return [F.grid_sample(m, g, mode="bilinear", padding_mode="border",
-                              align_corners=(i == 0))
-                for i, m in enumerate(maps)]
 
-    library_ms = cuda_time(library)
-    P = xy.shape[1]
-    nbytes = (sum(t.numel() * t.element_size() for t in args)
-              + sum(t.numel() * 4 for t in got))
-    flops = VIEWS * P * (3 + 2 * 32) * 4 * 2     # 4 taps x (mul + add)
+def gather_outputs(args, dev, shift=False):
+    V, P = args[3].shape[:2]
+    C = args[1].shape[3]
+    return [torch.empty(V * P * c + shift, device=dev)[int(shift):].view(V, P, c)
+            for c in (3 + C, C)]
+
+
+def check_gather(dev, gen, planner, scene):
+    from graspnerf_tpu_torch.ops import epipolar_gather as eg
+    block = eg.library().epipolar_gather_points_per_block()
+    vol, render = f"random P={RES ** 3}", f"random P={RENDER_ROWS}"
+    planned = f"planner P={RES ** 3}"
+    cases = {vol: gather_inputs(gen, dev), planned: planner_gather_inputs(
+        planner, scene), render: gather_inputs(gen, dev, RENDER_ROWS)}
+    for P in (1, block - 1, block + 1):
+        cases[f"random P={P}"] = gather_inputs(gen, dev, P)
+    # the maps, coordinates and outputs one float off 16 bytes: the kernel's
+    # float-by-float path and the stage's shifted slab
+    cases["random P=1000 shifted"] = [
+        shifted(t) for t in gather_inputs(gen, dev, 1000)]
+    errs = {}
+    for name, args in cases.items():
+        if name.endswith("shifted"):
+            got = eg.launcher(*args, *gather_outputs(args, dev, True))()
+        else:
+            got = eg.epipolar_gather(*args)
+        torch.cuda.synchronize()
+        want = eg.epipolar_gather_plain(*args)
+        # the plain version on the CPU divides exactly as the kernel does
+        cpu = eg.epipolar_gather_plain(*[t.cpu() for t in args])
+        valid = args[4]
+        for g, w, c, what in zip(got, want, cpu, ("rgb_feats", "ray_feats")):
+            check(torch.allclose(g, w, atol=GATHER_ATOL, rtol=0),
+                  f"gather {what} {name}: max err {max_err(g, w)}")
+            check(torch.equal(g.cpu(), c), f"gather {what} {name}: not "
+                  f"bit-equal to the plain version on the CPU "
+                  f"(max err {max_err(g.cpu(), c)})")
+            check(bool((g[~valid] == 0).all()),
+                  f"gather {what} {name}: invalid points not 0")
+        errs[name] = max(max_err(g, w) for g, w in zip(got, want))
+        log(f"epipolar_gather {name}: max_abs_err {errs[name]:.3e} vs the "
+            f"plain version on the card (atol {GATHER_ATOL}), bit-equal to it "
+            f"on the CPU, invalid points 0; "
+            f"{float(valid.float().mean()):.3f} of the points valid")
+
+    times = {}
+    for name in (vol, planned, render):
+        args = cases[name]
+        outs = gather_outputs(args, dev)
+        nbytes = (sum(t.numel() * t.element_size() for t in args)
+                  + sum(t.numel() * 4 for t in outs))
+        P = args[3].shape[1]
+        flops = VIEWS * P * (3 + 2 * 32) * 4 * 2     # 4 taps x (mul + add)
+        times[name] = {
+            "ms": cuda_time(lambda: eg.epipolar_gather(*args)),
+            "kernel_ms": cuda_time(eg.launcher(*args, *outs)),
+            "host_ms": host_time(lambda: eg.epipolar_gather(*args)),
+            "plain_ms": cuda_time(lambda: eg.epipolar_gather_plain(*args)),
+            "library_ms": cuda_time(gather_library(args)),
+            **bound(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)}
+        log(f"epipolar_gather {name} (ms: the wrapper; kernel_ms: the bare "
+            f"launch into preallocated outputs; host_ms: the wrapper's host "
+            f"time per call): {json.dumps(times[name])}")
     return {"name": "epipolar_gather", "route": "cuda",
             "source": "graspnerf_tpu_torch/csrc/epipolar_gather.cu",
             "replaces": "graspnerf_tpu/ops/fused_gather.py:233",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
-            **bound(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)}
+            "max_abs_err": errs[vol], **times[vol],
+            "planner_ms": times[planned]["ms"],
+            "planner_kernel_ms": times[planned]["kernel_ms"]}
 
 
 def bound(ops_s, bytes_s):
@@ -294,13 +339,15 @@ def run_planner(dev):
     from graspnerf_tpu_torch.models import GraspNeRF, init_parameters_
     from graspnerf_tpu_torch.ops.epipolar_gather import epipolar_gather
     from graspnerf_tpu_torch.ops.view_fuse import view_fuse
+    from graspnerf_tpu_torch.tools.scene import synthetic_views
 
     model = init_parameters_(GraspNeRF(), torch.Generator().manual_seed(SEED))
     sd = model.state_dict()
     # widths inside process()'s [1.33, 9.33] voxel window, so that random
     # weights leave candidates
     sd["vgn_net.conv_width.bias"].fill_(4.0)
-    images, poses, Ks, dr = synthetic_views(np.random.RandomState(SEED))
+    images, poses, Ks, dr = synthetic_views(
+        np.random.RandomState(SEED), VIEWS, HEIGHT, WIDTH)
     kern = GraspNeRFPlanner(sd, device=dev)
     plain = GraspNeRFPlanner(sd, device=dev, use_kernels=False)
 
@@ -459,8 +506,9 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     gen = torch.Generator().manual_seed(SEED)
-    rows = [check_view_fuse(dev, gen), check_gather(dev, gen)]
+    rows = [check_view_fuse(dev, gen)]
     planner, launches, inputs = run_planner(dev)
+    rows.append(check_gather(dev, gen, planner, inputs))
     phases = phase_times(planner, inputs)
     log("phases (median, min, max of 20) " + json.dumps(phases))
     if "--profile" in sys.argv[1:]:
@@ -469,7 +517,11 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    for row in rows:
+        check(all(k in row for k in keys), f"{row['name']}: a key is missing")
+    log(json.dumps({"kernels": [
+        {k: r[k] for k in (*keys, *sorted(set(r) - set(keys)))}
+        for r in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

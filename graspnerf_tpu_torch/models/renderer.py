@@ -51,6 +51,14 @@ def project_to_views(ref: Dict[str, torch.Tensor], que_pts: torch.Tensor,
             "ray_feats": r(prj_ray_feats), "rgb_feats": r(rgb_feats)}
 
 
+def volume_query_points(res: int, size: float,
+                        bbox_min: torch.Tensor) -> torch.Tensor:
+    """The res^3 workspace grid as [1, res^2, res, 3]: res^2 "rays" (the
+    z-columns) of res samples each, sampled top-down (z flipped)."""
+    pts = grid_points(res, size, bbox_min.device) + bbox_min
+    return torch.flip(pts.reshape(1, res * res, res, 3), [2])
+
+
 class NeuralRayRenderer(nn.Module):
     """Volume path of the renderer; the config mirrors configs/nrvgn_sdf.yaml.
     The fine decoder and aggregator exist so that the full param tree loads;
@@ -84,9 +92,7 @@ class NeuralRayRenderer(nn.Module):
         The grid is 1 x res^2 "rays" of res samples, so the ray attention runs
         along each z-column, sampled top-down (z flipped in and back out)."""
         res = self.volume_resolution
-        pts = grid_points(res, self.volume_size, ref["imgs"].device)
-        pts = pts + ref["bbox3d_min"]
-        que_pts = torch.flip(pts.reshape(1, res * res, res, 3), [2])
+        que_pts = volume_query_points(res, self.volume_size, ref["bbox3d_min"])
         prj = project_to_views(ref, que_pts, img_feats, ray_feats,
                                self.use_kernels)
         mean, var, aw = self.dist_decoder(prj["ray_feats"])

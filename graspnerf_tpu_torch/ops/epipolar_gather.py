@@ -6,7 +6,7 @@ Replaces `pack_feature_maps` + `fused_epipolar_gather`
 (graspnerf_tpu/ops/fused_gather.py:43-64,232-252). The space-to-depth packing
 and windowed gathers there are TPU workarounds; the CUDA kernel
 (csrc/epipolar_gather.cu) reads the four taps of each map straight from the
-channels-last maps.
+channels-last maps; `launcher` also takes preallocated outputs.
 
 Output layout: the kernel writes `rgb_feats [V,P,3+C]` (rgb | img_feats),
 the concatenation the aggregator feeds to the view fuse
@@ -34,48 +34,83 @@ def epipolar_gather_plain(imgs, img_feats, ray_feats, xy, valid):
     return torch.cat([rgb, img_f], -1), ray_f
 
 
-def _check(imgs, img_feats, ray_feats, xy, valid):
+_lib = None
+_I32 = 2 ** 31 - 1
+
+
+def library() -> ctypes.CDLL:
+    """The kernel's library, its entry points typed at first load."""
+    global _lib
+    if _lib is None:
+        lib = build.load("epipolar_gather")
+        lib.epipolar_gather_forward.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.epipolar_gather_forward.restype = ctypes.c_int
+        lib.epipolar_gather_points_per_block.argtypes = []
+        lib.epipolar_gather_points_per_block.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out):
+    """Raise on what the kernel does not take."""
     V, H, W, c3 = imgs.shape
     Vf, fh, fw, C = img_feats.shape
-    if c3 != 3 or Vf != V or ray_feats.shape != img_feats.shape:
-        raise ValueError(f"maps {tuple(imgs.shape)} {tuple(img_feats.shape)} "
-                         f"{tuple(ray_feats.shape)} do not match")
+    P = xy.shape[1] if xy.dim() == 3 else -1
+    if (c3, Vf) != (3, V) or (
+            ray_feats.shape, xy.shape, valid.shape, rgb_out.shape,
+            ray_out.shape) != ((V, fh, fw, C), (V, P, 2), (V, P),
+                               (V, P, 3 + C), (V, P, C)):
+        raise ValueError(
+            "shapes do not match imgs [V,H,W,3], maps [V,fh,fw,C], xy "
+            "[V,P,2], valid [V,P], outputs [V,P,3+C], [V,P,C]: " + ", ".join(
+                str(tuple(t.shape)) for t in (imgs, img_feats, ray_feats, xy,
+                                              valid, rgb_out, ray_out)))
     if (fh, fw) == (H, W) or not 0 < C <= 32:
         raise ValueError("kernel needs quarter-res maps of at most 32 channels")
-    if xy.dim() != 3 or xy.shape[0] != V or xy.shape[2] != 2:
-        raise ValueError(f"xy {tuple(xy.shape)} is not [V,P,2]")
-    if valid.shape != xy.shape[:2] or valid.dtype != torch.bool:
-        raise ValueError(f"valid must be bool {tuple(xy.shape[:2])}")
-    for t in (imgs, img_feats, ray_feats, xy):
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel takes float32, got {t.dtype}")
-    for t in (imgs, img_feats, ray_feats, xy, valid):
-        if not t.is_contiguous():
-            raise ValueError("kernel takes contiguous tensors")
-        if t.device != imgs.device:
-            raise ValueError("all tensors must lie on one device")
+    # the kernel indexes inside one view in 32 bits; views go on grid.y
+    if max(P * (3 + C), H * W * 3, fh * fw * C) > _I32 or V > 65535:
+        raise ValueError("a view's tensors exceed 32-bit indexing, or more "
+                         "than 65,535 views")
+    floats = (imgs, img_feats, ray_feats, xy, rgb_out, ray_out)
+    if valid.dtype != torch.bool or any(t.dtype != torch.float32
+                                        for t in floats):
+        raise TypeError("kernel takes float32 tensors and a bool valid")
+    device = imgs.device
+    for t in (*floats, valid):
+        if not t.is_contiguous() or t.device != device:
+            raise ValueError("kernel takes contiguous tensors on one device")
+
+
+def launcher(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out):
+    """Check the CUDA tensors once and return a call that launches the kernel
+    on them, writing rgb_out [V,P,3+C] and ray_out [V,P,C]: the wrapper's
+    launch, and the bare launch that chip_smoke.py and
+    tools/gather_variants.py time. Each call counts one launch."""
+    _check(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out)
+    tensors = (imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out)
+    V, H, W, _ = imgs.shape
+    _, fh, fw, C = img_feats.shape
+    args = [t.data_ptr() for t in tensors] + [V, xy.shape[1], H, W, fh, fw, C]
+    fn = library().epipolar_gather_forward
+    device = xy.device
+
+    def launch():
+        with torch.cuda.device(device):
+            status = fn(*args, torch.cuda.current_stream().cuda_stream)
+        build.check(status, "epipolar_gather")
+        epipolar_gather.launches += 1
+        return tensors[5], tensors[6]   # the closure keeps all seven alive
+
+    return launch
 
 
 def _launch(imgs, img_feats, ray_feats, xy, valid):
-    _check(imgs, img_feats, ray_feats, xy, valid)
-    V, H, W, _ = imgs.shape
-    _, fh, fw, C = img_feats.shape
-    P = xy.shape[1]
+    V, P = xy.shape[:2]
+    C = img_feats.shape[3]
     rgb_out = torch.empty((V, P, 3 + C), dtype=torch.float32, device=xy.device)
     ray_out = torch.empty((V, P, C), dtype=torch.float32, device=xy.device)
-    lib = build.load("epipolar_gather")
-    fn = lib.epipolar_gather_forward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(xy.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(imgs.data_ptr(), img_feats.data_ptr(),
-                    ray_feats.data_ptr(), xy.data_ptr(), valid.data_ptr(),
-                    rgb_out.data_ptr(), ray_out.data_ptr(),
-                    V, P, H, W, fh, fw, C, stream)
-    build.check(status, "epipolar_gather")
-    epipolar_gather.launches += 1
-    return rgb_out, ray_out
+    return launcher(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out)()
 
 
 def epipolar_gather(imgs, img_feats, ray_feats, xy, valid):

@@ -15,6 +15,7 @@ import sys
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from graspnerf_tpu.ops import geometry as G
@@ -28,6 +29,7 @@ from graspnerf_tpu.detect import postprocess as PP
 from graspnerf_tpu_torch.ops import geometry as TG
 from graspnerf_tpu_torch.ops import image as TI
 from graspnerf_tpu_torch.ops import interpolate as TIP
+from graspnerf_tpu_torch.ops import epipolar_gather as EG
 from graspnerf_tpu_torch.ops.epipolar_gather import (epipolar_gather,
                                                      epipolar_gather_plain)
 from graspnerf_tpu_torch.ops.tsdf import grid_points
@@ -124,6 +126,62 @@ def test_gather_plain_matches_fused_gather(rng):
     close(rgbf_t[..., 3:], img_f, 1e-6)
     close(ray_t, ray_f, 1e-6)
     assert (ray_t[~T(valid)] == 0).all()
+
+
+def _kernel_args(V=2, H=32, W=48, C=8, P=5, device="cpu"):
+    """Arguments of the gather kernel's launch, as `_check` takes them."""
+    f = dict(dtype=torch.float32, device=device)
+    return dict(imgs=torch.zeros(V, H, W, 3, **f),
+                img_feats=torch.zeros(V, H // 4, W // 4, C, **f),
+                ray_feats=torch.zeros(V, H // 4, W // 4, C, **f),
+                xy=torch.zeros(V, P, 2, **f),
+                valid=torch.zeros(V, P, dtype=torch.bool, device=device),
+                rgb_out=torch.zeros(V, P, 3 + C, **f),
+                ray_out=torch.zeros(V, P, C, **f))
+
+
+# P * (3 + C) at C = 32 just past 2^31 - 1; meta tensors hold no storage
+_P_OVER = 2 ** 31 // 35 + 1
+_REFUSED = {
+    "more than 32 channels": lambda: _kernel_args(C=36),
+    "full-res maps": lambda: dict(_kernel_args(), **{
+        k: torch.zeros(2, 32, 48, 8) for k in ("img_feats", "ray_feats")}),
+    "maps of other views": lambda: dict(_kernel_args(), **{
+        k: torch.zeros(3, 8, 12, 8) for k in ("img_feats", "ray_feats")}),
+    "maps that differ": lambda: dict(_kernel_args(),
+                                     ray_feats=torch.zeros(2, 8, 12, 4)),
+    "xy of other views": lambda: dict(_kernel_args(), xy=torch.zeros(3, 5, 2)),
+    "valid not bool": lambda: dict(_kernel_args(),
+                                   valid=torch.zeros(2, 5, dtype=torch.uint8)),
+    "outputs of another shape": lambda: dict(_kernel_args(),
+                                             rgb_out=torch.zeros(2, 5, 8)),
+    "float64": lambda: dict(_kernel_args(),
+                            imgs=torch.zeros(2, 32, 48, 3, dtype=torch.float64)),
+    "not contiguous": lambda: dict(_kernel_args(),
+                                   xy=torch.zeros(2, 2, 5).transpose(1, 2)),
+    "on two devices": lambda: dict(_kernel_args(),
+                                   imgs=torch.zeros(2, 32, 48, 3,
+                                                    device="meta")),
+    "over 32-bit indexing": lambda: _kernel_args(C=32, P=_P_OVER,
+                                                 device="meta"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_REFUSED))
+def test_gather_check_refuses(case):
+    """The launch's argument checks refuse what the kernel cannot take,
+    before anything reaches the card."""
+    with pytest.raises((ValueError, TypeError)):
+        EG._check(**_REFUSED[case]())
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(C=20), dict(C=3, P=1),
+                                dict(C=32, P=_P_OVER - 1, device="meta")],
+                         ids=["C=8", "C=20", "C=3,P=1", "largest P"])
+def test_gather_check_accepts(kw):
+    """C need not be a multiple of 4 (the kernel's float path), and a view
+    may hold up to 2^31 - 1 output floats."""
+    EG._check(**_kernel_args(**kw))
 
 
 def test_image_filters_match_jax(rng):
