@@ -3,23 +3,30 @@
 NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
 
 1. builds both CUDA kernels from csrc/ (nvcc, all sources at once);
-2. holds the view fuse against its plain PyTorch version at the volume
-   path's shapes, at ragged N around its row tile, with misaligned inputs
-   and through its backward, after checking its weight-pack guard, and
-   times it, also at the render pass's N;
-3. drives the planner (`GraspNeRFPlanner.core`) at full width -- six
+2. drives the planner (`GraspNeRFPlanner.core`) at full width -- six
    288 x 512 views, a 40^3 volume, every layer at the shipped widths, seeded
    random weights -- for a few planning calls, counts the kernel launches,
    and compares the volume, grasp-head outputs and candidates with the same
    planner on the plain versions on the same card;
-4. holds the gather against its plain version on the card (atol) and on
-   the CPU (bit-equal) on random and on the planner's own coordinates, at
-   ragged P around its block and with misaligned inputs and outputs, and
-   times it (wrapper and bare launch), also at the render pass's P;
-5. times the phases and the kernels with CUDA events.
+3. drives the render path (`NeuralRayRenderer.forward` without the volume,
+   and `GraspNeRF.forward` with it) at full width -- the same views, 4096
+   rays of view 0, 40 coarse + 40 fine samples -- counts the kernel
+   launches of each, compares every output with the same model on the plain
+   versions on the same card, times its phases, and keeps the kernels'
+   arguments of its coarse pass;
+4. holds the view fuse against its plain version at the volume path's
+   shapes, at ragged N around its row tile, with misaligned inputs, on the
+   render's own inputs and through its backward, after checking its
+   weight-pack guard, and times it;
+5. holds the gather against its plain version on the card (atol) and on
+   the CPU (bit-equal) on random, the planner's and the render's
+   coordinates, at ragged P around its block and with misaligned inputs
+   and outputs, and times it (wrapper and bare launch);
+6. times the planner's phases with CUDA events.
 
-`--profile` adds a torch.profiler breakdown of a planning call by stage
-and by op. It prints a `kernels` JSON line, then as its last line
+`--profile` adds a torch.profiler breakdown of a planning call and of a
+render by stage and by op. It prints a `kernels` JSON line, then as its
+last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero before
 that. Without a CUDA device, or without the package beside it, it exits
 non-zero at once.
@@ -38,7 +45,11 @@ import torch
 N_CALLS = 3            # planning calls on the counted main path
 SEED = 0
 VIEWS, HEIGHT, WIDTH, RES = 6, 288, 512, 40
-RENDER_ROWS = 4096 * 40   # the render pass's view-fuse rows: rays x samples
+RENDER_RAYS, RENDER_SAMPLES = 4096, 40
+RENDER_ROWS = RENDER_RAYS * RENDER_SAMPLES   # a render pass's view-fuse rows
+# the SDF output kernels scaled so that random weights leave the SDF inside
+# (-1, 1) rather than clipped, and so carrying the whole chain's error
+SDF_SCALE = 0.1
 # Tolerances, kernel vs plain version, float32 on the card:
 # - view fuse: the kernel sums 207-long dot products in another order (FMA,
 #   base_fc.0's gf block in two partial sums), scales a layer's sums where
@@ -54,6 +65,17 @@ FUSE_ATOL, FUSE_RTOL = 1e-4, 1e-4
 GATHER_ATOL = 1e-4
 # - planner: both differences above pass through the geometry head.
 PLANNER_ATOL = 1e-4
+# - render: the gather's differences pass straight into the colours (a
+#   convex blend of the gathered RGB) and, through the dist decoder and the
+#   view fuse, into SDF, alpha (the SDF times inv_s = e^3 under a sigmoid)
+#   and hit probabilities; the composite adds them up along each ray.
+RENDER_ATOL = 2e-4
+# - fine samples: the inverse CDF multiplies a difference in the coarse hit
+#   probabilities by up to a bin's width over 1e-5 (sample_fine_depth's
+#   guard), ~2.5e3 in normalised inverse depth at 40 samples; so the fine
+#   pass is compared at the kernel model's own samples, and the samples
+#   here, in metres.
+FINE_DEPTH_ATOL = 1e-3
 # H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -152,7 +174,8 @@ def fuse_bound(n):
     return bound(2 * macs / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
 
 
-def check_view_fuse(dev, gen):
+def check_view_fuse(dev, gen, render_args):
+    """render_args: the view fuse's arguments in the render's coarse pass."""
     from graspnerf_tpu_torch.ops import view_fuse as vf
     from graspnerf_tpu_torch.ops.view_fuse import view_fuse, view_fuse_plain
     weights = fuse_weights(gen, dev)
@@ -172,23 +195,33 @@ def check_view_fuse(dev, gen):
         f"pack = pack_weights' {n_pack}; {n_pack + 4} is refused; tiles of "
         f"{tile} rows")
 
+    def compare(name, ins, w):
+        got = view_fuse(*ins, w)
+        torch.cuda.synchronize()
+        want = view_fuse_plain(*ins, w)
+        check(torch.equal(got[1], want[1]), f"view_fuse num_valid {name}")
+        for what, i in (("feat_const", 0), ("x", 2), ("vis", 3)):
+            g, p = got[i], want[i]
+            check(bool(torch.isfinite(g).all()), f"view_fuse {what} finite")
+            check(torch.allclose(g, p, atol=FUSE_ATOL, rtol=FUSE_RTOL),
+                  f"view_fuse {what} {name}: max err {max_err(g, p)}")
+        err = max(max_err(g, p) for g, p in zip(got, want))
+        log(f"view_fuse {name}: max_abs_err {err:.3e} (atol {FUSE_ATOL}, "
+            f"rtol {FUSE_RTOL}; num_valid exact)")
+        return err
+
     errs = {}
     for n in (1, tile - 1, tile + 1, 1000, RES ** 3, "1000 shifted"):
         ins = fuse_inputs(gen, 1000 if n == "1000 shifted" else n, dev)
         if n == "1000 shifted":   # takes the kernel's float-by-float loads
             ins = [shifted(t) for t in ins]
-        got = view_fuse(*ins, weights)
-        torch.cuda.synchronize()
-        want = view_fuse_plain(*ins, weights)
-        check(torch.equal(got[1], want[1]), f"view_fuse num_valid N={n}")
-        for name, i in (("feat_const", 0), ("x", 2), ("vis", 3)):
-            g, w = got[i], want[i]
-            check(bool(torch.isfinite(g).all()), f"view_fuse {name} finite")
-            check(torch.allclose(g, w, atol=FUSE_ATOL, rtol=FUSE_RTOL),
-                  f"view_fuse {name} N={n}: max err {max_err(g, w)}")
-        errs[n] = max(max_err(g, w) for g, w in zip(got, want))
-        log(f"view_fuse N={n}: max_abs_err {errs[n]:.3e} (atol {FUSE_ATOL}, "
-            f"rtol {FUSE_RTOL}; num_valid exact)")
+        errs[n] = compare(f"N={n}", ins, weights)
+    render = f"render N={RENDER_ROWS}"
+    # the model's weights, out of autograd: no graph kept for a backward
+    render_args = (*render_args[:4],
+                   [(a.detach(), b.detach()) for a, b in render_args[4]])
+    errs[render] = compare(render + " (the coarse pass's inputs)",
+                           render_args[:4], render_args[4])
 
     # backward: autograd through the kernel's Function == through the plain
     ins = [t.requires_grad_() for t in fuse_inputs(gen, 256, dev)[:3]]
@@ -211,20 +244,26 @@ def check_view_fuse(dev, gen):
         f"(atol {FUSE_ATOL}, rtol {FUSE_RTOL})")
 
     times = {}
-    for n in (RES ** 3, RENDER_ROWS):
-        ins = fuse_inputs(gen, n, dev)
-        times[n] = {"ms": cuda_time(lambda: view_fuse(*ins, weights)),
-                    "plain_ms": cuda_time(
-                        lambda: view_fuse_plain(*ins, weights)),
-                    **fuse_bound(n)}
+    for n in (RES ** 3, RENDER_ROWS, render):
+        if n == render:
+            ins, w = render_args[:4], render_args[4]
+        else:
+            ins, w = fuse_inputs(gen, n, dev), weights
+        times[n] = {"ms": cuda_time(lambda: view_fuse(*ins, w)),
+                    "plain_ms": cuda_time(lambda: view_fuse_plain(*ins, w)),
+                    **fuse_bound(ins[0].shape[1])}
         del ins
-    log(f"view_fuse at the render pass's N={RENDER_ROWS} (4096 rays x 40 "
-        f"samples): " + json.dumps(times[RENDER_ROWS]))
+    for n in (RENDER_ROWS, render):
+        log(f"view_fuse, {'random' if n == RENDER_ROWS else 'render'} inputs "
+            f"at the render pass's N={RENDER_ROWS}: " + json.dumps(times[n]))
     return {"name": "view_fuse", "route": "cuda",
             "source": "graspnerf_tpu_torch/csrc/view_fuse.cu",
             "replaces": "graspnerf_tpu/ops/pallas/ibrnet_fuse.py:115",
             "max_abs_err": errs[RES ** 3], "library_ms": None,
-            **times[RES ** 3]}
+            **times[RES ** 3], "render_ms": times[render]["ms"],
+            "render_plain_ms": times[render]["plain_ms"],
+            "render_bound_ms": times[render]["bound_ms"],
+            "render_max_abs_err": errs[render]}
 
 
 def planner_gather_inputs(planner, scene):
@@ -257,13 +296,15 @@ def gather_outputs(args, dev, shift=False):
             for c in (3 + C, C)]
 
 
-def check_gather(dev, gen, planner, scene):
+def check_gather(dev, gen, planner, scene, render_args):
+    """render_args: the gather's arguments in the render's coarse pass."""
     from graspnerf_tpu_torch.ops import epipolar_gather as eg
     block = eg.library().epipolar_gather_points_per_block()
     vol, render = f"random P={RES ** 3}", f"random P={RENDER_ROWS}"
-    planned = f"planner P={RES ** 3}"
+    planned, rendered = f"planner P={RES ** 3}", f"render P={RENDER_ROWS}"
     cases = {vol: gather_inputs(gen, dev), planned: planner_gather_inputs(
-        planner, scene), render: gather_inputs(gen, dev, RENDER_ROWS)}
+        planner, scene), render: gather_inputs(gen, dev, RENDER_ROWS),
+        rendered: list(render_args)}
     for P in (1, block - 1, block + 1):
         cases[f"random P={P}"] = gather_inputs(gen, dev, P)
     # the maps, coordinates and outputs one float off 16 bytes: the kernel's
@@ -296,7 +337,7 @@ def check_gather(dev, gen, planner, scene):
             f"{float(valid.float().mean()):.3f} of the points valid")
 
     times = {}
-    for name in (vol, planned, render):
+    for name in (vol, planned, render, rendered):
         args = cases[name]
         outs = gather_outputs(args, dev)
         nbytes = (sum(t.numel() * t.element_size() for t in args)
@@ -318,7 +359,13 @@ def check_gather(dev, gen, planner, scene):
             "replaces": "graspnerf_tpu/ops/fused_gather.py:233",
             "max_abs_err": errs[vol], **times[vol],
             "planner_ms": times[planned]["ms"],
-            "planner_kernel_ms": times[planned]["kernel_ms"]}
+            "planner_kernel_ms": times[planned]["kernel_ms"],
+            "render_ms": times[rendered]["ms"],
+            "render_kernel_ms": times[rendered]["kernel_ms"],
+            "render_plain_ms": times[rendered]["plain_ms"],
+            "render_library_ms": times[rendered]["library_ms"],
+            "render_bound_ms": times[rendered]["bound_ms"],
+            "render_max_abs_err": errs[rendered]}
 
 
 def bound(ops_s, bytes_s):
@@ -403,9 +450,196 @@ def run_planner(dev):
     return kern, launches, (images, poses, Ks, dr)
 
 
+def render_data(inputs, dev):
+    """GraspNeRF.forward's data: the planner's views as `ref`, 4096 random
+    pixels of view 0 as `que`, and a few voxel indices for `vgn_pred`."""
+    from graspnerf_tpu_torch.detect.planner import DEFAULT_BBOX_MIN
+    from graspnerf_tpu_torch.tools.scene import query_rays
+    images, poses, Ks, dr = inputs
+    rng = np.random.RandomState(SEED)
+    que = query_rays(rng, images, poses, Ks, dr, RENDER_RAYS)
+
+    def t(tree):
+        return {k: torch.as_tensor(v, device=dev) for k, v in tree.items()}
+    return {"ref": t({"imgs": images, "poses": poses, "Ks": Ks,
+                      "depth_range": dr, "bbox3d_min": DEFAULT_BBOX_MIN}),
+            "que": t(que), "grasp_index": torch.as_tensor(
+                rng.randint(0, RES, (16, 3)), device=dev)}
+
+
+def capture_kernel_args(fn):
+    """Runs fn with the two kernel wrappers, as the models call them,
+    replaced by recorders that keep the arguments of each one's first call
+    and pass every call on. Returns {wrapper name: args}."""
+    import graspnerf_tpu_torch.models.ibrnet as ibrnet
+    import graspnerf_tpu_torch.models.renderer as renderer
+    seen = {}
+    wrappers = ((ibrnet, "view_fuse"), (renderer, "epipolar_gather"))
+
+    def recorder(name, wrapper):
+        def record(*args):
+            seen.setdefault(name, args)
+            return wrapper(*args)
+        return record
+
+    originals = [getattr(mod, name) for mod, name in wrappers]
+    try:
+        for (mod, name), wrapper in zip(wrappers, originals):
+            setattr(mod, name, recorder(name, wrapper))
+        fn()
+    finally:
+        for (mod, name), wrapper in zip(wrappers, originals):
+            setattr(mod, name, wrapper)
+    return seen
+
+
+def flat(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def compare_outputs(got, want, what):
+    """Every key of `want` against `got`: bool keys equal, the rest within
+    RENDER_ATOL. Returns {key: max abs err}."""
+    errs = {}
+    for key in sorted(want):
+        for g, w in zip(flat(got[key]), flat(want[key])):
+            check(g.shape == w.shape, f"render {what} {key}: shape")
+            if g.dtype == torch.bool:
+                check(torch.equal(g, w), f"render {what} {key} differs")
+                e = 0.0
+            else:
+                e = max_err(g, w)
+                check(e <= RENDER_ATOL, f"render {what} {key}: {e:.3e}")
+            errs[key] = max(errs.get(key, 0.0), e)
+    return errs
+
+
+def compare_render(out, want, plain, data):
+    """The kernel model's forward `out` against the plain model's `want`:
+    the coarse pass, volume and heads directly; the fine pass at the kernel
+    model's own fine samples, since the inverse CDF magnifies the coarse
+    pass's differences (FINE_DEPTH_ATOL). Returns those fine samples."""
+    from graspnerf_tpu_torch.ops import geometry
+    ref, que = data["ref"], data["que"]
+    dr = que["depth_range"]
+    nr = plain.nr_net
+    errs = compare_outputs(out, {k: v for k, v in want.items()
+                                 if not k.endswith("_fine")}, "coarse")
+    coarse_depth = geometry.sample_depth(dr, RENDER_RAYS, RENDER_SAMPLES)
+    with torch.no_grad():
+        fine_depth = [torch.sort(geometry.sample_fine_depth(
+            coarse_depth, o["hit_prob_nr"], dr, RENDER_SAMPLES), -1).values
+            for o in (out, want)]
+        e_depth = max_err(*fine_depth)
+        check(e_depth <= FINE_DEPTH_ATOL, f"fine samples: {e_depth:.3e} m")
+        fine = nr.render_by_depth(fine_depth[0], que, ref,
+                                  *nr.encode_views(ref["imgs"]), True)
+    errs.update({k + "_fine": v for k, v in compare_outputs(
+        {k: out[k + "_fine"] for k in fine}, fine, "fine").items()})
+    sdf = torch.cat([out["sdf_values"], out["sdf_values_fine"]]).flatten()
+    log(f"render vs plain versions (atol {RENDER_ATOL}, ray masks exact): "
+        + json.dumps({k: float(f"{e:.3e}") for k, e in errs.items()}))
+    log(f"render: fine samples {e_depth:.3e} m from the plain model's "
+        f"(atol {FINE_DEPTH_ATOL}); sdf range [{float(sdf.min()):.3f}, "
+        f"{float(sdf.max()):.3f}], {float((sdf == 1).float().mean()):.3f} "
+        f"seen by no view, {float((sdf == -1).float().mean()):.3f} at -1; "
+        f"ray_mask {int(out['ray_mask'].sum())} / {RENDER_RAYS}")
+    return fine_depth[0]
+
+
+def run_render(dev, inputs, iters=10):
+    """The render path at full width through the kernels: counts their
+    launches, holds every output against the same model on the plain
+    versions on the same card, and times the phases. Returns {launches,
+    args: the kernels' arguments in the coarse pass, times, stages: the
+    (name, call) of a render's stages for the profile}."""
+    from graspnerf_tpu_torch.models import (GraspNeRF, init_parameters_,
+                                            load_graspnerf)
+    from graspnerf_tpu_torch.ops import geometry
+    from graspnerf_tpu_torch.ops.epipolar_gather import epipolar_gather
+    from graspnerf_tpu_torch.ops.view_fuse import view_fuse
+
+    sd = init_parameters_(GraspNeRF(), torch.Generator().manual_seed(SEED)
+                          ).state_dict()
+    for net in ("agg_net", "fine_agg_net"):
+        sd[f"nr_net.{net}.agg_impl.out_geometry_fc.1.weight"] *= SDF_SCALE
+    cfg = {"depth_sample_num": RENDER_SAMPLES,
+           "fine_depth_sample_num": RENDER_SAMPLES, "volume_resolution": RES}
+    kern = load_graspnerf(sd, dev, cfg)
+    plain = load_graspnerf(sd, dev, cfg, use_kernels=False)
+    render_only = load_graspnerf(sd, dev, dict(cfg, do_sample_volume=False)
+                                 ).nr_net
+    data = render_data(inputs, dev)
+    ref, que = data["ref"], data["que"]
+
+    launches = {}
+    with torch.no_grad():
+        kern(data)           # first calls: library loads, cuDNN set-up
+        for name, fn in (("render", lambda: render_only(data)),
+                         ("forward", lambda: kern(data))):
+            view_fuse.launches = epipolar_gather.launches = 0
+            out = fn()
+            torch.cuda.synchronize()
+            launches[name] = {"view_fuse": view_fuse.launches,
+                              "epipolar_gather": epipolar_gather.launches}
+        want = plain(data)
+    log(f"render: launches {launches} (NeuralRayRenderer.forward without the "
+        f"volume; GraspNeRF.forward with it)")
+    for name, n in (("render", 2), ("forward", 3)):
+        check(launches[name] == {"view_fuse": n, "epipolar_gather": n},
+              f"{name}: launches {launches[name]}, not {n} of each kernel")
+    for key, value in out.items():
+        for v in flat(value):
+            check(v.dtype == torch.bool or bool(torch.isfinite(v).all()),
+                  f"render {key} not finite")
+    check(out["pixel_colors_nr_fine"].shape == (1, RENDER_RAYS, 3)
+          and out["volume"].shape == (RES,) * 3, "render shapes")
+    fine_depth = compare_render(out, want, plain, data)
+
+    knr, dr = kern.nr_net, que["depth_range"]
+    coarse_depth = geometry.sample_depth(dr, RENDER_RAYS, RENDER_SAMPLES)
+    with torch.no_grad():
+        feats = knr.encode_views(ref["imgs"])
+        phases = {
+            "coarse_pass": lambda: knr.render_by_depth(
+                coarse_depth, que, ref, *feats, False),
+            "fine_sampling": lambda: torch.sort(geometry.sample_fine_depth(
+                coarse_depth, out["hit_prob_nr"], dr, RENDER_SAMPLES), -1),
+            "fine_pass": lambda: knr.render_by_depth(
+                fine_depth, que, ref, *feats, True),
+            "render": lambda: knr.render_rays(que, ref, *feats),
+            "render_plain": lambda: plain.nr_net.render_rays(que, ref,
+                                                             *feats),
+            "forward": lambda: kern(data)}
+        times = {name + "_ms": event_ms(fn, iters)
+                 for name, fn in phases.items()}
+        args = capture_kernel_args(phases["coarse_pass"])
+    log(f"render phases (median, min, max of {iters}) " + json.dumps(times))
+    stages = (("encode", lambda: knr.encode_views(ref["imgs"])),
+              *((k, phases[k]) for k in ("coarse_pass", "fine_sampling",
+                                         "fine_pass")))
+    return {"launches": launches, "args": args, "times": times,
+            "stages": stages}
+
+
+def event_ms(fn, iters):
+    """[median, min, max] ms of `iters` calls of fn after one warm-up, CUDA
+    events around each call."""
+    fn()
+    ms = []
+    for _ in range(iters):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return [float(np.median(ms)), min(ms), max(ms)]
+
+
 def phase_times(planner, inputs, iters=20):
     """Per-phase ms of a planning call: median and spread (min, max) of
-    `iters` calls of each phase, CUDA events around each call."""
+    `iters` calls of each phase."""
     ref = planner.scene(*inputs)
     feats = planner.encode(ref["imgs"])
     with torch.no_grad():
@@ -413,36 +647,29 @@ def phase_times(planner, inputs, iters=20):
     phases = {"encode": lambda: planner.encode(ref["imgs"]),
               "volume": lambda: planner.model.nr_net.sample_volume(ref, *feats),
               "head_postprocess": lambda: planner.detect(vol)}
-    out = {}
     with torch.no_grad():
-        for name, fn in phases.items():
-            fn()
-            ms = []
-            for _ in range(iters):
-                start, end = (torch.cuda.Event(enable_timing=True)
-                              for _ in range(2))
-                start.record()
-                fn()
-                end.record()
-                torch.cuda.synchronize()
-                ms.append(start.elapsed_time(end))
-            out[name + "_ms"] = [float(np.median(ms)), min(ms), max(ms)]
-    return out
+        return {name + "_ms": event_ms(fn, iters)
+                for name, fn in phases.items()}
 
 
-def profile_call(planner, inputs, calls=3):
-    """torch.profiler over `calls` planning calls, run stage by stage under
-    named ranges: the device's busy share of the wall time, device ms per
-    call of each stage, and the top ops by self device time."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+def planner_stages(planner, inputs):
+    """(name, call) of each stage of a planning call, on one scene."""
     ref = planner.scene(*inputs)
-    stages = (("encode", lambda: planner.encode(ref["imgs"])),
-              ("volume", lambda: planner.model.nr_net.sample_volume(
-                  ref, *feats)),
-              ("head_postprocess", lambda: planner.detect(vol)))
     with torch.no_grad():
         feats = planner.encode(ref["imgs"])
         vol = planner.model.nr_net.sample_volume(ref, *feats)
+    return (("encode", lambda: planner.encode(ref["imgs"])),
+            ("volume", lambda: planner.model.nr_net.sample_volume(
+                ref, *feats)),
+            ("head_postprocess", lambda: planner.detect(vol)))
+
+
+def profile_call(title, stages, calls=3):
+    """torch.profiler over `calls` calls of `stages` ((name, call), run in
+    order under named ranges): the device's busy share of the wall time,
+    device ms per call of each stage, and the top ops by self device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with torch.no_grad():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -459,22 +686,36 @@ def profile_call(planner, inputs, calls=3):
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    log(f"profile ({calls} calls): device busy {busy_us / calls / 1e3:.3f} ms "
+    log(f"profile of a {title} ({calls} calls): device busy "
+        f"{busy_us / calls / 1e3:.3f} ms "
         f"of {wall_us / calls / 1e3:.3f} ms wall per call "
         f"({100 * busy_us / wall_us:.1f} %), {len(kernels) // calls} kernels")
     for name, _ in stages:   # kernels that start inside the stage's range
         spans = [e.time_range for e in events if e.is_user_annotation
                  and e.device_type == DeviceType.CUDA and e.name == name]
-        inside = sum(k.time_range.elapsed_us() for k in kernels if any(
-            r.start <= k.time_range.start < r.end for r in spans))
-        log(f"  stage {name}: kernels busy {inside / calls / 1e3:.3f} ms "
-            f"per call" + ("" if spans else " (no device-side range)"))
+        host_us = sum(e.time_range.elapsed_us() for e in events
+                      if e.is_user_annotation and e.name == name
+                      and e.device_type == DeviceType.CPU)
+        inside = [k.time_range.elapsed_us() for k in kernels if any(
+            r.start <= k.time_range.start < r.end for r in spans)]
+        log(f"  stage {name}: kernels busy {sum(inside) / calls / 1e3:.3f} "
+            f"ms per call, {len(inside) // calls} kernels, host range "
+            f"{host_us / calls / 1e3:.3f} ms"
+            + ("" if spans else " (no device-side range)"))
     totals = {}
     for k in kernels:
         t, n = totals.get(k.name, (0, 0))
         totals[k.name] = (t + k.time_range.elapsed_us(), n + 1)
     for name, (t, n) in sorted(totals.items(), key=lambda kv: -kv[1][0])[:15]:
         log(f"  {t / calls / 1e3:8.3f} ms {n // calls:5d}x  {name[:90]}")
+    # where the host's time goes: ops by self CPU time (under the profiler,
+    # which adds its own cost to every op)
+    stage_names = {name for name, _ in stages}
+    ops = [a for a in prof.key_averages() if a.key not in stage_names]
+    log("  host, by self CPU time per call:")
+    for a in sorted(ops, key=lambda a: -a.self_cpu_time_total)[:12]:
+        log(f"  {a.self_cpu_time_total / calls / 1e3:8.3f} ms "
+            f"{a.count // calls:5d}x  {a.key[:90]}")
 
 
 def main() -> int:
@@ -506,17 +747,23 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     gen = torch.Generator().manual_seed(SEED)
-    rows = [check_view_fuse(dev, gen)]
     planner, launches, inputs = run_planner(dev)
-    rows.append(check_gather(dev, gen, planner, inputs))
+    render = run_render(dev, inputs)
+    args = render["args"]
+    rows = [check_view_fuse(dev, gen, args["view_fuse"]),
+            check_gather(dev, gen, planner, inputs, args["epipolar_gather"])]
     phases = phase_times(planner, inputs)
     log("phases (median, min, max of 20) " + json.dumps(phases))
     if "--profile" in sys.argv[1:]:
-        profile_call(planner, inputs)
+        profile_call("planning call", planner_stages(planner, inputs))
+        profile_call("render", render["stages"])
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["render_launches"] = render["launches"]["render"][row["name"]]
+        row["forward_launches"] = render["launches"]["forward"][row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "render_launches", "render_ms")
     for row in rows:
         check(all(k in row for k in keys), f"{row['name']}: a key is missing")
     log(json.dumps({"kernels": [

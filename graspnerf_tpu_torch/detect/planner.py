@@ -12,7 +12,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from ..models import GraspNeRF
+from ..models import load_graspnerf, resolve_device
 from .postprocess import (process, nms, extract_candidates,
                           candidates_to_grasps)
 
@@ -20,27 +20,13 @@ DEFAULT_BBOX_MIN = np.array([-0.15, -0.15, -0.0503], np.float32)
 VOXEL_SIZE = 0.3 / 40
 
 
-def resolve_device(device) -> torch.device:
-    """`None` means the card. Without one this raises: the planner never
-    falls back to the CPU on its own; pass device="cpu" for that."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                               "planner on the CPU")
-        device = "cuda"
-    return torch.device(device)
-
-
 class GraspNeRFPlanner:
     """Inference-only planner.
 
-    params: a GraspNeRF state dict (torch keys, e.g. from
-    `convert.flax_to_state_dict`), loaded with strict=True. `use_kernels`
-    False runs the kernels' plain versions on the card; it exists to hold
-    the kernels against them. The planner computes in float32: on a card it
-    turns TF32 off for matmuls and cuDNN convolutions, a process-wide
-    PyTorch setting (cuDNN would otherwise run float32 convolutions in
-    TF32).
+    params, device, renderer_cfg and use_kernels build the model as
+    `models.load_graspnerf` does: on the card when device is None (raising
+    without one), in float32 (TF32 off), `use_kernels` False for the
+    kernels' plain versions.
     """
 
     def __init__(self, params: Mapping[str, torch.Tensor], device=None,
@@ -49,12 +35,8 @@ class GraspNeRFPlanner:
                  qual_threshold: float = 0.90, max_candidates: int = 64,
                  seed: int = 0, use_kernels: bool = True):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        self.model = GraspNeRF(renderer_cfg, use_kernels=use_kernels)
-        self.model.load_state_dict(params, strict=True)
-        self.model.to(self.device).eval()
+        self.model = load_graspnerf(params, self.device, renderer_cfg,
+                                    use_kernels)
         self.tsdf_thres = (tsdf_thres_high, tsdf_thres_low)
         self.qual_threshold = qual_threshold
         self.max_candidates = max_candidates

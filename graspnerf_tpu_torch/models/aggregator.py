@@ -1,10 +1,12 @@
-"""NeuS aggregation head (graspnerf_tpu/models/aggregator.py:18-113): the
-prob embedding, direction features and IBRNet-NeuS, on the SDF-only branch
-(`que_dists=None`) that volume queries take."""
+"""NeuS aggregation head (graspnerf_tpu/models/aggregator.py:18-123): the
+prob embedding, direction features and IBRNet-NeuS, then the NeuS alpha.
+`forward` is the render path's (sdf, colours, ∇sdf, alpha); `sdf` is the
+SDF-only branch that volume queries take (`que_dists=None` in JAX)."""
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from .ibrnet import IBRNetNeus
 
@@ -23,6 +25,21 @@ def to_vnc(x):
     return x.reshape(x.shape[0], -1, x.shape[-1])
 
 
+def neus_alpha(sdf, grad, que_dir, que_dists, inv_s, cos_anneal_ratio=1.0):
+    """NeuS opacity of each sample from its SDF and ∇sdf
+    (aggregator.py:49-63). sdf [qn,rn,dn], grad/que_dir [qn,rn,dn,3],
+    que_dists [qn,rn,dn] sample intervals, inv_s the sharpness."""
+    true_cos = torch.sum(-que_dir * grad, -1)
+    iter_cos = -(F.relu(-true_cos * 0.5 + 0.5) * (1.0 - cos_anneal_ratio)
+                 + F.relu(-true_cos) * cos_anneal_ratio)
+    est_next = sdf + iter_cos * que_dists * 0.5
+    est_prev = sdf - iter_cos * que_dists * 0.5
+    prev_cdf = torch.sigmoid(est_prev * inv_s)
+    next_cdf = torch.sigmoid(est_next * inv_s)
+    p = prev_cdf - next_cdf
+    return torch.clamp((p + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
+
+
 class SingleVariance(nn.Module):
     """Learned NeuS sharpness inv_s = exp(10 * variance)."""
 
@@ -35,7 +52,9 @@ class SingleVariance(nn.Module):
 
 
 class NeusAggregationNet(nn.Module):
-    """prob-embed + IBRNetNeus; `sdf` returns the volume path's SDF."""
+    """prob-embed + IBRNetNeus + NeuS alpha. The projection dict `prj` holds
+    [V,qn,rn,dn,C] tensors with `vis` and `hit_prob`; que_dir/que_pts are
+    [qn,rn,dn,3]."""
 
     def __init__(self, neuray_dim: int = 32, init_s: float = 0.3,
                  use_kernels: bool = True):
@@ -45,16 +64,39 @@ class NeusAggregationNet(nn.Module):
         self.agg_impl = IBRNetNeus(neuray_dim, use_kernels=use_kernels)
         self.deviation_network = SingleVariance(init_s)
 
-    def sdf(self, prj, que_dir, que_pts):
-        """prj: the projection dict ([V,qn,rn,dn,C] tensors) with `vis` and
-        `hit_prob`; que_dir/que_pts [qn,rn,dn,3] -> sdf [qn,rn,dn]."""
-        qn, rn, dn, _ = que_pts.shape
+    def fuse_inputs(self, prj, que_dir):
+        """The view fuse's [V,N,C] inputs: rgb_feats, prob embedding,
+        direction features, mask."""
         pe = torch.cat([prj["ray_feats"], (prj["hit_prob"] - 0.5) * 2,
                         (prj["vis"] - 0.5) * 2], -1)
+        return (to_vnc(prj["rgb_feats"]), to_vnc(self.prob_embed(pe)),
+                dir_diff_feature(prj["dir"], que_dir), to_vnc(prj["mask"]))
+
+    def sdf(self, prj, que_dir, que_pts):
+        """The volume path: sdf [qn,rn,dn], without ∇sdf or colours."""
+        qn, rn, dn, _ = que_pts.shape
         agg = self.agg_impl
         feat_const, num_valid, _, _ = agg.view_fuse(
-            to_vnc(prj["rgb_feats"]), to_vnc(self.prob_embed(pe)),
-            dir_diff_feature(prj["dir"], que_dir), to_vnc(prj["mask"]))
+            *self.fuse_inputs(prj, que_dir))
         sdf = agg.geometry(feat_const.reshape(qn * rn, dn, -1), que_pts,
                            num_valid.reshape(qn * rn, dn, 1))
         return sdf.reshape(qn, rn, dn)
+
+    def forward(self, prj, que_dir, que_pts, que_dists,
+                cos_anneal_ratio: float = 1.0):
+        """The render path, que_dists [qn,rn,dn] the sample intervals ->
+        {sdf [qn,rn,dn], colors [qn,rn,dn,3], grad (∇sdf) [qn,rn,dn,3],
+        alpha [qn,rn,dn], grad_error [1,1] (mean (|∇sdf| - 1)^2), s [1,1]
+        (the raw variance)}."""
+        qn, rn, dn, _ = que_pts.shape
+        colors, sdf, grad = self.agg_impl(*self.fuse_inputs(prj, que_dir),
+                                          que_pts, (qn * rn, dn))
+        sdf = sdf[..., 0].reshape(qn, rn, dn)
+        inv_s, s_raw = self.deviation_network()
+        gnorm = torch.linalg.norm(grad, dim=-1)
+        return {"sdf": sdf, "colors": colors.reshape(qn, rn, dn, 3),
+                "grad": grad,
+                "alpha": neus_alpha(sdf, grad, que_dir, que_dists, inv_s,
+                                    cos_anneal_ratio),
+                "grad_error": torch.mean((gnorm - 1.0) ** 2).reshape(1, 1),
+                "s": s_raw.detach().reshape(1, 1)}

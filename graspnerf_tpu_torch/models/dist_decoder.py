@@ -1,6 +1,7 @@
 """Mixture-of-logistics ray-distribution decoder
-(graspnerf_tpu/models/dist_decoder.py:19-89), fixed-interval path, use_vis
-False as in the shipped config."""
+(graspnerf_tpu/models/dist_decoder.py:19-89): the fixed-interval bins of
+volume queries and the per-sample bins of rendered rays; use_vis False as
+in the shipped config."""
 from __future__ import annotations
 
 import torch
@@ -33,14 +34,19 @@ class MixtureLogisticsDistDecoder(nn.Module):
         return mean, var, aw
 
 
-def compute_prob(depth, mean, var, aw, depth_range,
+def compute_prob(depth, mean, var, aw, depth_range, interval=None,
                  fixed_interval_val: float = 0.01, eps: float = 1e-5):
-    """Mixture CDF difference over each sample's fixed-width inverse-depth
-    bin. depth [V,qn,rn,dn] projected depths; mean/var [...,2], aw [...,1];
-    depth_range [V,2]. Returns (alpha_value, visibility, hit_prob), each
+    """Mixture CDF difference over each sample's inverse-depth bin.
+    depth [V,qn,rn,dn] projected depths; mean/var [...,2], aw [...,1];
+    depth_range [V,2]; interval [1,qn,rn,dn] the rays' sample intervals
+    (`geometry.near_far_bounds_ref`), or None for the fixed-width bins of
+    volume queries. Returns (alpha_value, visibility, hit_prob), each
     [V,qn,rn,dn]."""
-    near, far = geometry.near_far_bounds_fixed(depth, depth_range,
-                                               fixed_interval_val)
+    if interval is None:
+        near, far = geometry.near_far_bounds_fixed(depth, depth_range,
+                                                   fixed_interval_val)
+    else:
+        near, far = geometry.near_far_bounds_ref(depth, interval, depth_range)
     mix = torch.cat([aw, 1.0 - aw], -1)
     cdf0 = 0.5 + 0.5 * torch.tanh((near[..., None] - mean) * var)
     cdf1 = 0.5 + 0.5 * torch.tanh((far[..., None] - mean) * var)

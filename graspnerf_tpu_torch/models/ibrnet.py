@@ -4,9 +4,14 @@ leading, N = rays*samples.
 
 The per-view MLP stack and the fusion across views go through
 ops/view_fuse.py (the CUDA kernel on the card, its plain version on the CPU).
-The geometry head and the colour blend are plain PyTorch. ∇sdf (the JAX
-module's third output) is not computed: the volume path discards it; it
-arrives with the render path.
+The geometry head and the colour blend are plain PyTorch.
+
+∇sdf, the gradient of the SDF with respect to the query points alone, is
+the render path's third output: the JAX module takes it with a `jax.vjp` of
+the geometry head that closes over the fused features (ibrnet.py:233-236);
+here autograd runs the same head on detached features, inside a local
+`enable_grad` so that it works under the callers' `no_grad`. The volume path
+calls `geometry` and pays nothing for it.
 """
 from __future__ import annotations
 
@@ -120,6 +125,17 @@ class IBRNetNeus(nn.Module):
         sdf = torch.clamp(self.out_geometry_fc(g), -1.0, 1.0)
         return torch.where(num_valid < 1, torch.ones_like(sdf), sdf)
 
+    def geometry_and_grad(self, feat_const, pts, num_valid):
+        """(sdf [R,D,1], ∇sdf [Q,R',D,3]): `geometry` and the gradient of its
+        sum with respect to pts, the fused features held constant. For
+        inference: both come back detached (training's eikonal term needs
+        the double backward, which is not ported)."""
+        with torch.enable_grad():
+            pts = pts.detach().requires_grad_()
+            sdf = self.geometry(feat_const.detach(), pts, num_valid)
+            grad, = torch.autograd.grad(sdf, pts, torch.ones_like(sdf))
+        return sdf.detach(), grad
+
     def blend(self, rgb_in, x, vis, ray_diff, mask):
         """Softmax colour blend over views -> [N,3]."""
         h = self.rgb_fc(torch.cat([x, vis, ray_diff], -1))
@@ -128,11 +144,11 @@ class IBRNetNeus(nn.Module):
 
     def forward(self, rgb_feat, neuray_feat, ray_diff, mask, que_pts,
                 rd: Tuple[int, int]):
-        """-> (rgb [R,D,3], sdf [R,D,1])."""
+        """-> (rgb [R,D,3], sdf [R,D,1], ∇sdf [Q,R',D,3])."""
         R, D = rd
         feat_const, num_valid, x, vis = self.view_fuse(
             rgb_feat, neuray_feat, ray_diff, mask)
-        sdf = self.geometry(feat_const.reshape(R, D, -1), que_pts,
-                            num_valid.reshape(R, D, 1))
+        sdf, grad = self.geometry_and_grad(feat_const.reshape(R, D, -1),
+                                           que_pts, num_valid.reshape(R, D, 1))
         rgb = self.blend(rgb_feat[..., :3], x, vis, ray_diff, mask)
-        return rgb.reshape(R, D, 3), sdf
+        return rgb.reshape(R, D, 3), sdf, grad

@@ -1,25 +1,32 @@
-"""Generalizable NeRF renderer and grasp network, volume path
-(graspnerf_tpu/models/renderer.py:42-75,133-140,219-241,293-323).
+"""Generalizable NeRF renderer and grasp network, eval mode
+(graspnerf_tpu/models/renderer.py:42-216,219-241,268-323).
 
     6 ref images --ResUNet--> img_feats --+
                  --ResUNet--> ray_feats --+--VisEncoder--> ray_feats
-    40^3 grid --project--> epipolar gather --dist decoder--> hit/vis
-              --prob embed + view fuse + geometry head--> SDF volume
+    query rays --inverse-depth samples--> points --project--> epipolar
+              gather --dist decoder--> hit/vis --view fuse, geometry head
+              --> (rgb, sdf, ∇sdf) --NeuS alpha--> composite; then fine
+              samples from the coarse hit probabilities, a second pass
+    40^3 grid --same network (SDF only)--> SDF volume
               --3D CNN--> grasp quality / rotation / width
 
 Data contract (float32, channels-last): ref = {imgs [V,H,W,3], poses
-[V,3,4] world->cam, Ks [V,3,3], depth_range [V,2], bbox3d_min [3]}.
+[V,3,4] world->cam, Ks [V,3,3], depth_range [V,2], bbox3d_min [3]};
+que = {coords [qn,rn,2] (x,y), poses [qn,3,4], Ks [qn,3,3], depth_range
+[qn,2], imgs [qn,H,W,3] (optional)}. Training (jittered samples, the
+depth-loss means) is not ported.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn as nn
 
 from ..ops import geometry
 from ..ops.epipolar_gather import epipolar_gather, epipolar_gather_plain
+from ..ops.interpolate import interpolate_feats
 from ..ops.tsdf import grid_points
 from .aggregator import NeusAggregationNet
 from .dist_decoder import MixtureLogisticsDistDecoder, compute_prob
@@ -59,17 +66,41 @@ def volume_query_points(res: int, size: float,
     return torch.flip(pts.reshape(1, res * res, res, 3), [2])
 
 
-class NeuralRayRenderer(nn.Module):
-    """Volume path of the renderer; the config mirrors configs/nrvgn_sdf.yaml.
-    The fine decoder and aggregator exist so that the full param tree loads;
-    the volume path does not run them."""
+def resolve_device(device) -> torch.device:
+    """`None` means the card. Without one this raises: the port never falls
+    back to the CPU on its own; pass device="cpu" for that."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                               "the CPU")
+        device = "cuda"
+    return torch.device(device)
 
-    def __init__(self, volume_resolution: int = 40, volume_size: float = 0.3,
-                 init_s: float = 0.3, use_hierarchical_sampling: bool = True,
-                 use_kernels: bool = True):
+
+class NeuralRayRenderer(nn.Module):
+    """The config mirrors configs/nrvgn_sdf.yaml and the JAX dataclass's
+    fields of the same names."""
+
+    def __init__(self, depth_sample_num: int = 40,
+                 fine_depth_sample_num: int = 40,
+                 use_hierarchical_sampling: bool = True,
+                 render_rgb: bool = True, render_depth: bool = True,
+                 do_sample_volume: bool = True, volume_resolution: int = 40,
+                 volume_size: float = 0.3, use_ray_mask: bool = True,
+                 ray_mask_view_num: int = 2, ray_mask_point_num: int = 8,
+                 init_s: float = 0.3, use_kernels: bool = True):
         super().__init__()
+        self.depth_sample_num = depth_sample_num
+        self.fine_depth_sample_num = fine_depth_sample_num
+        self.use_hierarchical_sampling = use_hierarchical_sampling
+        self.render_rgb = render_rgb
+        self.render_depth = render_depth
+        self.do_sample_volume = do_sample_volume
         self.volume_resolution = volume_resolution
         self.volume_size = volume_size
+        self.use_ray_mask = use_ray_mask
+        self.ray_mask_view_num = ray_mask_view_num
+        self.ray_mask_point_num = ray_mask_point_num
         self.use_kernels = use_kernels
         self.image_encoder = ResUNetLight(3, (1, 2, 6, 4), 32, 16)
         self.init_net = RayFeatInitNet()
@@ -87,6 +118,68 @@ class NeuralRayRenderer(nn.Module):
         ray_feats = self.vis_encoder(self.init_net(imgs), img_feats)
         return img_feats, ray_feats.contiguous()
 
+    def _predict_ray_prob(self, decoder, prj, ref_depth_range, que_dists_inv):
+        """Adds the mask-gated `vis` and `hit_prob` to prj; que_dists_inv
+        [qn,rn,dn] the rays' intervals, or None for the volume's fixed bins
+        (renderer.py:143-159)."""
+        mean, var, aw = decoder(prj["ray_feats"])
+        interval = None if que_dists_inv is None else que_dists_inv[None]
+        _, visibility, hit = compute_prob(prj["depth"][..., 0], mean, var, aw,
+                                          ref_depth_range, interval)
+        prj["vis"] = visibility[..., None] * prj["mask"]
+        prj["hit_prob"] = hit[..., None] * prj["mask"]
+        return prj
+
+    def render_by_depth(self, que_depth, que, ref, img_feats, ray_feats,
+                        is_fine: bool):
+        """One render pass at the depths que_depth [qn,rn,dn]
+        (renderer.py:161-197)."""
+        dist_decoder = self.fine_dist_decoder if is_fine else self.dist_decoder
+        agg_net = self.fine_agg_net if is_fine else self.agg_net
+
+        que_dists_inv = geometry.depth2inv_dists(que_depth, que["depth_range"])
+        que_pts, que_dir = geometry.depth2points(
+            que["coords"], que["poses"], que["Ks"], que_depth)
+        prj = project_to_views(ref, que_pts, img_feats, ray_feats,
+                               self.use_kernels)
+        prj = self._predict_ray_prob(dist_decoder, prj, ref["depth_range"],
+                                     que_dists_inv)
+        agg = agg_net(prj, que_dir, que_pts, geometry.depth2dists(que_depth))
+
+        hit_prob = geometry.alpha2hit_prob(agg["alpha"])
+        out = {"alpha_values": agg["alpha"], "colors_nr": agg["colors"],
+               "hit_prob_nr": hit_prob,
+               "pixel_colors_nr": geometry.composite(hit_prob, agg["colors"]),
+               "sdf_values": agg["sdf"],
+               "sdf_gradient_error": agg["grad_error"], "s": agg["s"]}
+        if "imgs" in que:
+            out["pixel_colors_gt"] = interpolate_feats(
+                que["imgs"], que["coords"], align_corners=True)
+        if self.use_ray_mask:
+            m = torch.sum(prj["mask"], 0) > self.ray_mask_view_num  # qn,rn,dn,1
+            out["ray_mask"] = (torch.sum(m, 2) > self.ray_mask_point_num)[..., 0]
+        if self.render_depth:
+            out["render_depth"] = torch.sum(hit_prob * que_depth, -1)
+        return out
+
+    def render_rays(self, que, ref, img_feats, ray_feats):
+        """Coarse pass, then fine samples from its hit probabilities and a
+        second pass under the `_fine` keys (renderer.py:199-216)."""
+        _, rn, _ = que["coords"].shape
+        que_depth = geometry.sample_depth(que["depth_range"], rn,
+                                          self.depth_sample_num)
+        out = self.render_by_depth(que_depth, que, ref, img_feats, ray_feats,
+                                   False)
+        if self.use_hierarchical_sampling:
+            fine_depth = geometry.sample_fine_depth(
+                que_depth, out["hit_prob_nr"], que["depth_range"],
+                self.fine_depth_sample_num)
+            fine_depth = torch.sort(fine_depth, -1).values
+            fine = self.render_by_depth(fine_depth, que, ref, img_feats,
+                                        ray_feats, True)
+            out.update({k + "_fine": v for k, v in fine.items()})
+        return out
+
     def sample_volume(self, ref, img_feats, ray_feats) -> torch.Tensor:
         """SDF on the res^3 workspace grid -> [res,res,res] (x,y,z order).
         The grid is 1 x res^2 "rays" of res samples, so the ray attention runs
@@ -95,14 +188,29 @@ class NeuralRayRenderer(nn.Module):
         que_pts = volume_query_points(res, self.volume_size, ref["bbox3d_min"])
         prj = project_to_views(ref, que_pts, img_feats, ray_feats,
                                self.use_kernels)
-        mean, var, aw = self.dist_decoder(prj["ray_feats"])
-        _, visibility, hit = compute_prob(prj["depth"][..., 0], mean, var, aw,
-                                          ref["depth_range"])
-        prj["vis"] = visibility[..., None] * prj["mask"]
-        prj["hit_prob"] = hit[..., None] * prj["mask"]
+        prj = self._predict_ray_prob(self.dist_decoder, prj,
+                                     ref["depth_range"], None)
         que_dir = que_pts.new_tensor([0.0, 0.0, 1.0]).expand_as(que_pts)
         sdf = self.agg_net.sdf(prj, que_dir, que_pts)
         return torch.flip(sdf.reshape(res, res, res), [2])
+
+    def forward(self, data: Dict[str, Dict[str, torch.Tensor]],
+                train: bool = False, generator=None):
+        """data = {"ref": ..., "que": ... (optional)} -> the render keys
+        (coarse, and `_fine`) when there is a `que`, and `volume`
+        (renderer.py:268-290, eval mode)."""
+        if train or generator is not None:
+            raise NotImplementedError(
+                "training mode (jittered depth samples, the depth-loss means) "
+                "is not ported: ROADMAP Queue 1 item 2")
+        ref, que = data["ref"], data.get("que")
+        img_feats, ray_feats = self.encode_views(ref["imgs"])
+        out = {}
+        if self.render_rgb and que is not None:
+            out = self.render_rays(que, ref, img_feats, ray_feats)
+        if self.do_sample_volume:
+            out["volume"] = self.sample_volume(ref, img_feats, ray_feats)
+        return out
 
 
 class GraspNeRF(nn.Module):
@@ -114,6 +222,39 @@ class GraspNeRF(nn.Module):
         self.nr_net = NeuralRayRenderer(**(renderer_cfg or {}),
                                         use_kernels=use_kernels)
         self.vgn_net = VGNConvNet()
+
+    def forward(self, data, train: bool = False, generator=None):
+        """The renderer's outputs plus `vgn_pred_full` = (qual, rot, width)
+        [1,res,res,res,C] on its volume and, for data["grasp_index"] [n,3]
+        voxel indices, `vgn_pred` at them (renderer.py:310-323)."""
+        out = self.nr_net(data, train, generator)
+        qual, rot, width = self.vgn_net(out["volume"][None, ..., None])
+        out["vgn_pred_full"] = (qual, rot, width)
+        if "grasp_index" in data:
+            i, j, k = data["grasp_index"].unbind(-1)
+            out["vgn_pred"] = (qual[0, i, j, k, 0], rot[0, i, j, k, :],
+                               width[0, i, j, k, 0])
+        return out
+
+
+def load_graspnerf(params: Mapping[str, torch.Tensor], device=None,
+                   renderer_cfg: Optional[dict] = None,
+                   use_kernels: bool = True) -> GraspNeRF:
+    """A GraspNeRF in eval mode with `params` (torch keys, e.g. from
+    `convert.flax_to_state_dict`) loaded strictly, on `device`: the card
+    when None, raising without one. It computes in float32: on a card this
+    turns TF32 off for matmuls and cuDNN convolutions, a process-wide
+    PyTorch setting. `use_kernels` False runs the kernels' plain versions
+    on the card; it exists to hold the kernels against them. Run the model
+    under `torch.no_grad()`, as the planner does: the render path's ∇sdf
+    takes its own local autograd."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    model = GraspNeRF(renderer_cfg, use_kernels=use_kernels)
+    model.load_state_dict(params, strict=True)
+    return model.to(device).eval()
 
 
 @torch.no_grad()

@@ -1,7 +1,7 @@
 """A synthetic scene for the checks and tools on the card: cameras on a
 hemisphere around the workspace, looking at its centre, with random images;
-and the planner's volume grid projected into them, which are the epipolar
-gather's coordinates on the main path."""
+the planner's volume grid projected into them, which are the epipolar
+gather's coordinates on the main path; and query rays to render."""
 from __future__ import annotations
 
 import numpy as np
@@ -47,3 +47,17 @@ def volume_coords(poses: torch.Tensor, Ks: torch.Tensor, height: int,
     pts = volume_query_points(res, size, bbox).reshape(-1, 3)
     xy, _, valid = geometry.project_points(pts, poses, Ks, height, width)
     return xy.contiguous(), valid
+
+
+def query_rays(rng: np.random.RandomState, images, poses, Ks, depth_range,
+               n_rays: int = 4096, view: int = 0):
+    """The renderer's `que` dict (float32 numpy): n_rays random pixels of
+    reference view `view`, with that view's image, pose, intrinsics and
+    depth range, as the JAX package's render benchmark picks them
+    (bench.py:222-227)."""
+    _, height, width, _ = images.shape
+    idx = rng.randint(0, height * width, n_rays)
+    coords = np.stack([idx % width, idx // width], -1).astype(np.float32)
+    pick = slice(view, view + 1)
+    return {"coords": coords[None], "poses": poses[pick], "Ks": Ks[pick],
+            "depth_range": depth_range[pick], "imgs": images[pick]}

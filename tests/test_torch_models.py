@@ -220,8 +220,8 @@ def test_pack_kept_until_weights_change(rng):
 
 
 def test_ibrnet_sdf_rgb_match_jax(rng):
-    """IBRNetNeus sdf and rgb (the JAX module also returns ∇sdf, which the
-    port leaves to the render slice)."""
+    """IBRNetNeus sdf and rgb; its third output, ∇sdf, is held in
+    test_torch_render.py."""
     params = sub(graspnerf_params(), "nr_net", "agg_net", "agg_impl")
     R, D = 5, 8
     rgbf, neur, diff, mask = _fuse_inputs(rng, R * D)
@@ -231,7 +231,7 @@ def test_ibrnet_sdf_rgb_match_jax(rng):
         {"params": p}, *a, (R, D)))(params, *map(jnp.asarray, args))
     tm = load(TM.IBRNetNeus(), params)
     with torch.no_grad():
-        rgb_t, sdf_t = tm(*map(torch.from_numpy, args), (R, D))
+        rgb_t, sdf_t, _ = tm(*map(torch.from_numpy, args), (R, D))
     close(sdf_t, sdf_j, 2e-5)
     close(rgb_t, rgb_j, 2e-5)
     assert (sdf_t.reshape(-1)[:3] == 1.0).all()   # unseen rows: sdf = 1
