@@ -14,19 +14,30 @@ NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
    launches of each, compares every output with the same model on the plain
    versions on the same card, times its phases, and keeps the kernels'
    arguments of its coarse pass;
-4. holds the view fuse against its plain version at the volume path's
+4. drives the train step (`train.make_train_step`) at full width -- the
+   same views, 512 rays of view 0 x (40 + 40) samples, the 40^3 volume,
+   8192 depth-loss pixels, 32 grasps -- for a few steps, counts the
+   launches of the three kernels per step, holds the losses and every
+   parameter's gradient against the same model on the plain versions on
+   the same card (same draws, the fine pass at equal samples), checks the
+   view fuse after a weight update, times the step (forward, backward,
+   optimizer) and keeps the gather's arguments of its coarse pass;
+5. holds the view fuse against its plain version at the volume path's
    shapes, at ragged N around its row tile, with misaligned inputs, on the
    render's own inputs and through its backward, after checking its
    weight-pack guard, and times it;
-5. holds the gather against its plain version on the card (atol) and on
+6. holds the gather against its plain version on the card (atol) and on
    the CPU (bit-equal) on random, the planner's and the render's
    coordinates, at ragged P around its block and with misaligned inputs
    and outputs, and times it (wrapper and bare launch);
-6. times the planner's phases with CUDA events.
+7. holds the gather's backward kernel against autograd through the plain
+   version on the card and on the CPU, on random, the planner's and the
+   train pass's coordinates, at ragged P and misaligned, and times it;
+8. times the planner's phases with CUDA events.
 
-`--profile` adds a torch.profiler breakdown of a planning call and of a
-render by stage and by op. It prints a `kernels` JSON line, then as its
-last line
+`--profile` adds a torch.profiler breakdown of a planning call, of a
+render and of a train step by stage and by op. It prints a `kernels` JSON
+line, then as its last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero before
 that. Without a CUDA device, or without the package beside it, it exits
 non-zero at once.
@@ -47,6 +58,11 @@ SEED = 0
 VIEWS, HEIGHT, WIDTH, RES = 6, 288, 512, 40
 RENDER_RAYS, RENDER_SAMPLES = 4096, 40
 RENDER_ROWS = RENDER_RAYS * RENDER_SAMPLES   # a render pass's view-fuse rows
+# the train step: configs/nrvgn_sdf.yaml's ray_num and depth_loss_coords_num,
+# the synthetic dataset's grasps per scene (graspnerf_tpu/data/synthetic.py)
+TRAIN_RAYS, DEPTH_COORDS, TRAIN_GRASPS = 512, 8192, 32
+TRAIN_ROWS = TRAIN_RAYS * RENDER_SAMPLES     # a train pass's rows and points
+TRAIN_STEPS = 5        # counted steps on the main path; then >= 10 timed
 # the SDF output kernels scaled so that random weights leave the SDF inside
 # (-1, 1) rather than clipped, and so carrying the whole chain's error
 SDF_SCALE = 0.1
@@ -76,6 +92,23 @@ RENDER_ATOL = 2e-4
 #   pass is compared at the kernel model's own samples, and the samples
 #   here, in metres.
 FINE_DEPTH_ATOL = 1e-3
+# - train: the losses and each parameter's gradient, kernels vs plain
+#   versions, same draws, the fine pass at equal samples. The gather's
+#   differences above pass into every loss; the gradients also carry the
+#   backward kernel's sums in another order through ~40 layers back to the
+#   encoders. Per parameter, max |kernel - plain| <= TRAIN_GRAD_RTOL x its
+#   largest |gradient|; below GRAD_FLOOR a gradient is mathematically zero
+#   (conv biases before InstanceNorm, the colour blend's last bias) and
+#   only rounding noise. The CPU test holds the port to JAX at 1e-2.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL, GRAD_FLOOR = 2e-2, 1e-7
+# - gather backward vs autograd through the plain version: on the card, the
+#   forward's weights differ by the division's rounding (up to ~3e-5 of a
+#   full-res pixel per weight, summed over a cell's contributions); on the
+#   CPU the weights are bit-equal and only the sum order differs (atomics),
+#   so there each map cell is held to BWD_SUM_RTOL of the sum of the
+#   absolute values of its contributions.
+BWD_ATOL, BWD_RTOL, BWD_SUM_RTOL = 5e-4, 1e-5, 1e-4
 # H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -470,7 +503,7 @@ def render_data(inputs, dev):
 def capture_kernel_args(fn):
     """Runs fn with the two kernel wrappers, as the models call them,
     replaced by recorders that keep the arguments of each one's first call
-    and pass every call on. Returns {wrapper name: args}."""
+    and pass every call on. Returns ({wrapper name: args}, fn's result)."""
     import graspnerf_tpu_torch.models.ibrnet as ibrnet
     import graspnerf_tpu_torch.models.renderer as renderer
     seen = {}
@@ -486,11 +519,11 @@ def capture_kernel_args(fn):
     try:
         for (mod, name), wrapper in zip(wrappers, originals):
             setattr(mod, name, recorder(name, wrapper))
-        fn()
+        out = fn()
     finally:
         for (mod, name), wrapper in zip(wrappers, originals):
             setattr(mod, name, wrapper)
-    return seen
+    return seen, out
 
 
 def flat(x):
@@ -613,13 +646,374 @@ def run_render(dev, inputs, iters=10):
             "forward": lambda: kern(data)}
         times = {name + "_ms": event_ms(fn, iters)
                  for name, fn in phases.items()}
-        args = capture_kernel_args(phases["coarse_pass"])
+        args, _ = capture_kernel_args(phases["coarse_pass"])
     log(f"render phases (median, min, max of {iters}) " + json.dumps(times))
     stages = (("encode", lambda: knr.encode_views(ref["imgs"])),
               *((k, phases[k]) for k in ("coarse_pass", "fine_sampling",
                                          "fine_pass")))
     return {"launches": launches, "args": args, "times": times,
             "stages": stages}
+
+
+# ------------------------------------------------------------ train step
+def pinned_fine_samples(fn, pinned=None):
+    """Runs fn with `sample_fine_depth`, as the renderer calls it, recording
+    the samples it returns; with `pinned`, the renderer gets those instead.
+    Returns (fn's result, the samples sample_fine_depth computed)."""
+    from graspnerf_tpu_torch.ops import geometry
+    original, own = geometry.sample_fine_depth, []
+
+    def record(*args, **kw):
+        own.append(original(*args, **kw))
+        return own[-1] if pinned is None else pinned
+    geometry.sample_fine_depth = record
+    try:
+        return fn(), own[0]
+    finally:
+        geometry.sample_fine_depth = original
+
+
+def train_states(dev):
+    """(kernel state, plain-version state, batch): one seeded GraspNeRF at
+    the shipped widths, the SDF output kernels scaled as for the render,
+    under `create_train_state` twice; the seeded full-width batch."""
+    from graspnerf_tpu_torch.models import GraspNeRF, init_parameters_
+    from graspnerf_tpu_torch.tools.scene import training_batch
+    from graspnerf_tpu_torch.train import create_train_state
+    cfg = {"depth_sample_num": RENDER_SAMPLES,
+           "fine_depth_sample_num": RENDER_SAMPLES, "volume_resolution": RES,
+           "depth_loss_coords_num": DEPTH_COORDS}
+    sd = init_parameters_(GraspNeRF(cfg), torch.Generator().manual_seed(SEED)
+                          ).state_dict()
+    for net in ("agg_net", "fine_agg_net"):
+        sd[f"nr_net.{net}.agg_impl.out_geometry_fc.1.weight"] *= SDF_SCALE
+    states = []
+    for use_kernels in (True, False):
+        model = GraspNeRF(cfg, use_kernels=use_kernels)
+        model.load_state_dict(sd, strict=True)
+        states.append(create_train_state(model, device=dev))
+    batch = training_batch(np.random.RandomState(SEED), dev, VIEWS, HEIGHT,
+                           WIDTH, TRAIN_RAYS, RES, TRAIN_GRASPS)
+    return states[0], states[1], batch
+
+
+def counts():
+    from graspnerf_tpu_torch.ops.epipolar_gather import (
+        epipolar_gather, epipolar_gather_backward)
+    from graspnerf_tpu_torch.ops.view_fuse import view_fuse
+    return {"view_fuse": view_fuse.launches,
+            "epipolar_gather": epipolar_gather.launches,
+            "epipolar_gather_backward": epipolar_gather_backward.launches}
+
+
+def zero_counts():
+    from graspnerf_tpu_torch.ops.epipolar_gather import (
+        epipolar_gather, epipolar_gather_backward)
+    from graspnerf_tpu_torch.ops.view_fuse import view_fuse
+    view_fuse.launches = epipolar_gather.launches = 0
+    epipolar_gather_backward.launches = 0
+
+
+def compare_train(kern, plain, batch, dev):
+    """One training loss and its gradients on the kernel model and on the
+    plain-version model: the same draws (generators of one seed), the plain
+    model's fine pass at the kernel model's fine samples. Checks the
+    launches (3 of each kernel), the losses, the fine samples and every
+    parameter's gradient. Returns the gather's arguments in the coarse
+    pass."""
+    from graspnerf_tpu_torch.train import gradients, make_loss_fn
+    zero_counts()
+    args, ((total_k, ld_k), fine_k) = capture_kernel_args(
+        lambda: pinned_fine_samples(lambda: make_loss_fn(kern.model)(
+            batch, torch.Generator(device=dev).manual_seed(SEED))))
+    grads_k = gradients(kern, total_k)
+    torch.cuda.synchronize()
+    launched = counts()
+    log(f"train: one loss and its gradients launch {launched}")
+    check(launched == {"view_fuse": 3, "epipolar_gather": 3,
+                       "epipolar_gather_backward": 3},
+          f"train: launches {launched}, not 3 of each kernel")
+    (total_p, ld_p), fine_p = pinned_fine_samples(
+        lambda: make_loss_fn(plain.model)(
+            batch, torch.Generator(device=dev).manual_seed(SEED)), fine_k)
+    grads_p = gradients(plain, total_p)
+    e_fine = max_err(fine_k, fine_p)
+    check(e_fine <= FINE_DEPTH_ATOL, f"train fine samples: {e_fine:.3e} m")
+    errs = {}
+    for key in sorted(ld_k):
+        k, p = float(ld_k[key].detach()), float(ld_p[key].detach())
+        check(math.isfinite(k), f"train {key} not finite")
+        errs[key] = abs(k - p) / max(abs(p), 1e-12)
+        check(errs[key] <= TRAIN_LOSS_RTOL,
+              f"train {key}: {k} vs plain {p} (rel {errs[key]:.3e})")
+    rel, skipped = [], 0
+    for (name, _), gk, gp in zip(kern.model.named_parameters(), grads_k,
+                                 grads_p):
+        check(bool(torch.isfinite(gk).all()), f"gradient of {name} finite")
+        scale = max(float(gk.abs().max()), float(gp.abs().max()))
+        if scale < GRAD_FLOOR:
+            skipped += 1
+            continue
+        r = max_err(gk, gp) / scale
+        check(r <= TRAIN_GRAD_RTOL, f"gradient of {name}: {r:.3e} of its "
+              f"scale {scale:.3e} from the plain version's")
+        rel.append((r, name, scale))
+    rel.sort(reverse=True)
+    log(f"train vs plain versions: losses (rel, tol {TRAIN_LOSS_RTOL}) "
+        + json.dumps({k: float(f"{e:.3e}") for k, e in errs.items()}))
+    log(f"train: fine samples {e_fine:.3e} m from the plain model's (atol "
+        f"{FINE_DEPTH_ATOL}); gradients of {len(rel)} parameters within "
+        f"{TRAIN_GRAD_RTOL} of their scale ({skipped} below {GRAD_FLOOR} "
+        f"skipped); largest: " + ", ".join(
+            f"{n} {r:.2e} (scale {s:.1e})" for r, n, s in rel[:6])
+        + f"; median {rel[len(rel) // 2][0]:.2e}")
+    log("train losses: " + json.dumps(
+        {k: float(f"{float(v):.6g}") for k, v in ld_k.items()}))
+    return args["epipolar_gather"]
+
+
+def check_fuse_after_update(state, batch, dev):
+    """After a train step the view fuse's weights have changed in place:
+    the kernel on them must equal its plain version (a weight pack kept
+    from before the update would not)."""
+    from graspnerf_tpu_torch.ops.view_fuse import view_fuse, view_fuse_plain
+    from graspnerf_tpu_torch.train import make_train_step
+    agg = state.model.nr_net.agg_net.agg_impl
+    args, _ = capture_kernel_args(lambda: make_train_step(state)(
+        batch, torch.Generator(device=dev).manual_seed(SEED)))
+    ins = [t.detach() for t in args["view_fuse"][:4]]
+    before = [w.detach().clone() for pair in agg.fuse_weights() for w in pair]
+    with torch.no_grad():
+        view_fuse(*ins, agg.fuse_weights())        # keeps the pack
+    make_train_step(state)(batch, torch.Generator(device=dev)
+                           .manual_seed(SEED + 1))
+    after = [w for pair in agg.fuse_weights() for w in pair]
+    check(any(not torch.equal(a, b) for a, b in zip(before, after)),
+          "the train step left the view fuse's weights unchanged")
+    with torch.no_grad():
+        got = view_fuse(*ins, agg.fuse_weights())
+        want = view_fuse_plain(*ins, agg.fuse_weights())
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    for g, w in zip(got, want):
+        check(torch.allclose(g, w, atol=FUSE_ATOL, rtol=FUSE_RTOL),
+              f"view_fuse after a weight update: max err {max_err(g, w)}")
+    log(f"view_fuse after a weight update: max_abs_err {err:.3e} vs its "
+        f"plain version (atol {FUSE_ATOL}, rtol {FUSE_RTOL})")
+
+
+def train_step_ms(state, batch, dev, iters):
+    """[median, min, max] ms of `iters` train steps, and of each step's
+    forward (the losses), backward (the gradients) and optimizer (the
+    finite test and Adam), CUDA events between them; one warm-up step."""
+    from graspnerf_tpu_torch.train import (apply_gradients, gradients,
+                                           make_loss_fn)
+    loss_fn = make_loss_fn(state.model)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    parts = {"step": [], "forward": [], "backward": [], "optimizer": []}
+    for i in range(iters + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        total, _ = loss_fn(batch, gen)
+        ev[1].record()
+        grads = gradients(state, total)
+        ev[2].record()
+        check(apply_gradients(state, grads), "train: a gradient not finite")
+        ev[3].record()
+        torch.cuda.synchronize()
+        if i == 0:
+            continue
+        for name, (a, b) in (("step", (0, 3)), ("forward", (0, 1)),
+                             ("backward", (1, 2)), ("optimizer", (2, 3))):
+            parts[name].append(ev[a].elapsed_time(ev[b]))
+    return {name + "_ms": [float(np.median(ms)), min(ms), max(ms)]
+            for name, ms in parts.items()}
+
+
+def run_train(dev, iters=10):
+    """The train step at full width through the kernels: holds one loss
+    and its gradients against the plain-version model, drives TRAIN_STEPS
+    steps with the counts set to 0 before them, checks the view fuse after
+    an update, and times the steps of both models. Returns {launches, steps,
+    args: the gather's arguments in the coarse pass, times, stages}."""
+    from graspnerf_tpu_torch.train import (apply_gradients, gradients,
+                                           make_loss_fn, make_train_step)
+    kern, plain, batch = train_states(dev)
+    args = compare_train(kern, plain, batch, dev)
+
+    step = make_train_step(kern)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    zero_counts()
+    totals = []
+    for _ in range(TRAIN_STEPS):
+        metrics = step(batch, gen)
+        check(float(metrics["nonfinite_grad"]) == 0.0, "train: step skipped")
+        totals.append(float(metrics["total"]))
+    torch.cuda.synchronize()
+    launches = counts()
+    log(f"train: {TRAIN_STEPS} steps, totals {totals}, launches {launches}")
+    check(all(math.isfinite(t) for t in totals), "train: total not finite")
+    for name, n in launches.items():
+        check(n == 3 * TRAIN_STEPS, f"train: {name} launched {n} times in "
+              f"{TRAIN_STEPS} steps, not 3 per step")
+    check(kern.step == TRAIN_STEPS, f"train: {kern.step} updates")
+    check_fuse_after_update(kern, batch, dev)
+
+    times = train_step_ms(kern, batch, dev, iters)
+    times["plain_step_ms"] = train_step_ms(plain, batch, dev,
+                                           iters)["step_ms"]
+    log(f"train step phases (median, min, max of {iters}) "
+        + json.dumps(times))
+    log(f"train: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    loss_fn, gen, held = make_loss_fn(kern.model), torch.Generator(
+        device=dev).manual_seed(SEED), {}
+    stages = (
+        ("forward", lambda: held.update(total=loss_fn(batch, gen)[0])),
+        ("backward", lambda: held.update(
+            grads=gradients(kern, held.pop("total")))),
+        ("optimizer", lambda: apply_gradients(kern, held.pop("grads"))))
+    return {"launches": launches, "steps": TRAIN_STEPS, "args": args,
+            "times": times, "stages": stages}
+
+
+def gather_backward_library(args, grads):
+    """Yardstick, which the port never calls: the backward of three
+    F.grid_sample calls (grid_sampler_2d_backward) at the same points,
+    into the three maps."""
+    import torch.nn.functional as F
+    imgs, f1, f2, xy, _ = args
+    maps = [m.detach().permute(0, 3, 1, 2).contiguous().requires_grad_()
+            for m in (imgs, f1, f2)]
+    xy = xy.detach()
+    g = torch.stack([xy[..., 0] / (WIDTH - 1) * 2 - 1,
+                     xy[..., 1] / (HEIGHT - 1) * 2 - 1], -1)[:, None]
+    outs = [F.grid_sample(m, g, mode="bilinear", padding_mode="border",
+                          align_corners=(i == 0))
+            for i, m in enumerate(maps)]
+    d_rgb, d_ray = grads
+    cot = [d_rgb[..., :3], d_rgb[..., 3:], d_ray]
+    cot = [c.permute(0, 2, 1)[:, :, None].contiguous() for c in cot]
+    return lambda: torch.autograd.grad(outs, maps, cot, retain_graph=True)
+
+
+def check_gather_backward(dev, gen, planner, scene, train_args):
+    """The gather's backward kernel against autograd through the plain
+    version, on the card and on the CPU, and its times. train_args: the
+    gather's arguments in the train step's coarse pass."""
+    from graspnerf_tpu_torch.ops import epipolar_gather as eg
+    # xy requiring a gradient is refused, not silently dropped
+    xy = gather_inputs(gen, dev, 64)
+    try:
+        with torch.enable_grad():
+            eg.epipolar_gather(*xy[:3], xy[3].requires_grad_(), xy[4])
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "gather: xy requiring a gradient was taken")
+
+    vol, planned = f"random P={RES ** 3}", f"planner P={RES ** 3}"
+    trained, spread = f"train P={TRAIN_ROWS}", f"random P={TRAIN_ROWS}"
+    cases = {vol: gather_inputs(gen, dev), planned: planner_gather_inputs(
+        planner, scene), trained: list(train_args),
+        spread: gather_inputs(gen, dev, TRAIN_ROWS)}
+    for P in (1, 31, 33):
+        cases[f"random P={P}"] = gather_inputs(gen, dev, P)
+    cases["random P=1000 shifted"] = gather_inputs(gen, dev, 1000)
+    upstream = {}
+    errs = {}
+    for name, args in cases.items():
+        V, P = args[3].shape[:2]
+        C = args[1].shape[3]
+        shapes = (tuple(args[0].shape), tuple(args[1].shape))
+        d_rgb = torch.randn(V, P, 3 + C, generator=gen).to(dev)
+        d_ray = torch.randn(V, P, C, generator=gen).to(dev)
+        xy, valid = args[3].detach(), args[4]
+        if name.endswith("shifted"):   # the float path: scalar atomics
+            d_rgb, d_ray = shifted(d_rgb), shifted(d_ray)
+            outs = [shifted(torch.zeros(s, device=dev))
+                    for s in (shapes[0], shapes[1], shapes[1])]
+            got = eg.backward_launcher(*outs, xy, valid, d_rgb, d_ray)()
+        else:
+            got = eg.epipolar_gather_backward(xy, valid, d_rgb, d_ray,
+                                              *shapes, need_imgs=True)
+        torch.cuda.synchronize()
+        upstream[name] = (d_rgb, d_ray)
+        want = eg.epipolar_gather_backward_plain(*shapes, xy, valid, d_rgb,
+                                                 d_ray, True)
+        cpu_args = [t.cpu() for t in (xy, valid, d_rgb, d_ray)]
+        cpu = eg.epipolar_gather_backward_plain(*shapes, *cpu_args, True)
+        sums = eg.epipolar_gather_backward_plain(
+            *shapes, *cpu_args[:2], cpu_args[2].abs(), cpu_args[3].abs(),
+            True)
+        for g, w, c, a, what in zip(got, want, cpu, sums,
+                                    ("d_imgs", "d_img_feats", "d_ray_feats")):
+            check(torch.allclose(g, w, atol=BWD_ATOL, rtol=BWD_RTOL),
+                  f"gather backward {what} {name}: max err {max_err(g, w)}")
+            over = ((g.cpu() - c).abs() - BWD_SUM_RTOL * a).max()
+            check(float(over) <= 1e-6, f"gather backward {what} {name}: "
+                  f"{float(over):.3e} beyond {BWD_SUM_RTOL} of its cell's "
+                  f"sum of |contributions| from the plain version on the "
+                  f"CPU")
+        errs[name] = max(max_err(g, w) for g, w in zip(got, want))
+        log(f"epipolar_gather_backward {name}: max_abs_err {errs[name]:.3e} "
+            f"vs the plain version on the card (atol {BWD_ATOL}, rtol "
+            f"{BWD_RTOL}); on the CPU within {BWD_SUM_RTOL} of each cell's "
+            f"sum of |contributions|")
+
+    times = {}
+    for name in (vol, planned, trained, spread):
+        args = cases[name]
+        d_rgb, d_ray = upstream[name]
+        xy, valid = args[3].detach(), args[4]
+        shapes = (tuple(args[0].shape), tuple(args[1].shape))
+        V, P = xy.shape[:2]
+        C = shapes[1][3]
+        outs = [torch.zeros(s, device=dev)
+                for s in (shapes[0], shapes[1], shapes[1])]
+        # each upstream gradient, xy and valid read once; the two maps'
+        # gradients written once (d_imgs is not asked for on the path)
+        nbytes = (sum(t.numel() * t.element_size()
+                      for t in (xy, valid, d_rgb, d_ray))
+                  + 2 * math.prod(shapes[1]) * 4)
+        # per (view, point, channel): the mask, two row and four tap weights
+        # (7 multiplies) and four adds into the map
+        flops = V * P * 2 * C * 11
+        # the same launch on one-float-shifted gradients and outputs: the
+        # kernel's scalar atomics, one per tap and channel
+        scalar = eg.backward_launcher(
+            *[shifted(o) for o in outs], xy, valid, shifted(d_rgb),
+            shifted(d_ray), False)
+        times[name] = {
+            "ms": cuda_time(lambda: eg.epipolar_gather_backward(
+                xy, valid, d_rgb, d_ray, *shapes)),
+            "kernel_ms": cuda_time(eg.backward_launcher(
+                *outs, xy, valid, d_rgb, d_ray, False)),
+            "scalar_kernel_ms": cuda_time(scalar),
+            "plain_ms": cuda_time(lambda: eg.epipolar_gather_backward_plain(
+                *shapes, xy, valid, d_rgb, d_ray)),
+            "library_ms": cuda_time(gather_backward_library(
+                args, (d_rgb, d_ray))),
+            **bound(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)}
+        log(f"epipolar_gather_backward {name} (ms: the wrapper, zeroed "
+            f"outputs included; kernel_ms: the bare launch; "
+            f"scalar_kernel_ms: the bare launch on shifted tensors, scalar "
+            f"atomics): " + json.dumps(times[name]))
+    return {"name": "epipolar_gather_backward", "route": "cuda",
+            "source": "graspnerf_tpu_torch/csrc/epipolar_gather.cu",
+            "replaces": "graspnerf_tpu/ops/fused_gather.py:260",
+            "max_abs_err": errs[vol], **times[vol],
+            "planner_ms": times[planned]["ms"],
+            "planner_kernel_ms": times[planned]["kernel_ms"],
+            "train_ms": times[trained]["ms"],
+            "train_kernel_ms": times[trained]["kernel_ms"],
+            "train_plain_ms": times[trained]["plain_ms"],
+            "train_library_ms": times[trained]["library_ms"],
+            "train_bound_ms": times[trained]["bound_ms"],
+            "train_max_abs_err": errs[trained],
+            "train_random_kernel_ms": times[spread]["kernel_ms"],
+            "planner_scalar_kernel_ms": times[planned]["scalar_kernel_ms"],
+            "train_scalar_kernel_ms": times[trained]["scalar_kernel_ms"]}
 
 
 def event_ms(fn, iters):
@@ -664,12 +1058,13 @@ def planner_stages(planner, inputs):
             ("head_postprocess", lambda: planner.detect(vol)))
 
 
-def profile_call(title, stages, calls=3):
+def profile_call(title, stages, calls=3, grad=False):
     """torch.profiler over `calls` calls of `stages` ((name, call), run in
-    order under named ranges): the device's busy share of the wall time,
-    device ms per call of each stage, and the top ops by self device time."""
+    order under named ranges), under no_grad unless `grad`: the device's
+    busy share of the wall time, device ms per call of each stage, and the
+    top ops by self device time."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    with torch.no_grad():
+    with torch.set_grad_enabled(grad):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -690,6 +1085,7 @@ def profile_call(title, stages, calls=3):
         f"{busy_us / calls / 1e3:.3f} ms "
         f"of {wall_us / calls / 1e3:.3f} ms wall per call "
         f"({100 * busy_us / wall_us:.1f} %), {len(kernels) // calls} kernels")
+    inside_any = 0
     for name, _ in stages:   # kernels that start inside the stage's range
         spans = [e.time_range for e in events if e.is_user_annotation
                  and e.device_type == DeviceType.CUDA and e.name == name]
@@ -698,10 +1094,15 @@ def profile_call(title, stages, calls=3):
                       and e.device_type == DeviceType.CPU)
         inside = [k.time_range.elapsed_us() for k in kernels if any(
             r.start <= k.time_range.start < r.end for r in spans)]
+        inside_any += len(inside)
         log(f"  stage {name}: kernels busy {sum(inside) / calls / 1e3:.3f} "
             f"ms per call, {len(inside) // calls} kernels, host range "
             f"{host_us / calls / 1e3:.3f} ms"
             + ("" if spans else " (no device-side range)"))
+    if inside_any < len(kernels):   # e.g. autograd's backward thread
+        log(f"  {(len(kernels) - inside_any) // calls} kernels per call "
+            f"launched outside the stages' device ranges (by another "
+            f"thread)")
     totals = {}
     for k in kernels:
         t, n = totals.get(k.name, (0, 0))
@@ -749,21 +1150,29 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     planner, launches, inputs = run_planner(dev)
     render = run_render(dev, inputs)
+    train = run_train(dev)
     args = render["args"]
     rows = [check_view_fuse(dev, gen, args["view_fuse"]),
-            check_gather(dev, gen, planner, inputs, args["epipolar_gather"])]
+            check_gather(dev, gen, planner, inputs, args["epipolar_gather"]),
+            check_gather_backward(dev, gen, planner, inputs, train["args"])]
     phases = phase_times(planner, inputs)
     log("phases (median, min, max of 20) " + json.dumps(phases))
     if "--profile" in sys.argv[1:]:
         profile_call("planning call", planner_stages(planner, inputs))
         profile_call("render", render["stages"])
+        profile_call("train step", train["stages"], grad=True)
     for row in rows:
-        row["launches"] = launches[row["name"]]
-        row["render_launches"] = render["launches"]["render"][row["name"]]
-        row["forward_launches"] = render["launches"]["forward"][row["name"]]
+        # `launches`: the row's main path, the planner for the forward
+        # kernels, the train steps for the backward
+        name = row["name"]
+        row["launches"] = launches.get(name, train["launches"][name])
+        row["render_launches"] = render["launches"]["render"].get(name, 0)
+        row["forward_launches"] = render["launches"]["forward"].get(name, 0)
+        row["train_launches"] = train["launches"][name]
+        row["train_steps"] = train["steps"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "render_launches", "render_ms")
+            "render_launches", "train_launches")
     for row in rows:
         check(all(k in row for k in keys), f"{row['name']}: a key is missing")
     log(json.dumps({"kernels": [

@@ -1,6 +1,6 @@
-// Epipolar feature gather, forward (sm_90a, float32).
+// Epipolar feature gather, forward and backward (sm_90a, float32).
 //
-// Replaces: graspnerf_tpu/ops/fused_gather.py `fused_epipolar_gather`
+// Forward. Replaces: graspnerf_tpu/ops/fused_gather.py `fused_epipolar_gather`
 // (:232-252) with `pack_feature_maps` (:43-64), whose values equal three
 // `interpolate_feature_map` calls (graspnerf_tpu/ops/interpolate.py:82-91).
 // For every (view v, point p) it samples
@@ -33,6 +33,24 @@
 // The arithmetic is the plain version's, op for op (ops/interpolate.py); the
 // library is built with -fmad=false so no a*b+c is contracted and the result
 // is bit-equal to the plain version.
+//
+// Backward. Replaces: `_feg_bwd` (graspnerf_tpu/ops/fused_gather.py:260-270)
+// with `_splat_windows` (:183-229), the transpose of the forward with respect
+// to the three maps: for every (view, point, channel) the upstream gradient
+// times the mask, times each of the four tap weights, added into the map at
+// that tap. The gradient with respect to xy is not computed (no path needs
+// it: the points carry no gradient). Upstream: d_rgb_feats [V,P,3+C] (its
+// channels 0..2 go to the RGB image, 3.. to img_feats) and d_ray_feats
+// [V,P,C]; outputs d_img_feats, d_ray_feats [V,fh,fw,C] and, only when asked
+// for, d_imgs [V,H,W,3], all zeroed by the caller.
+// Bound: bytes (the upstream gradients, read once); in practice the atomics.
+// Design: the forward's blocks and phase 1, so that the taps and weights are
+// the forward's to the bit; then, per tap, one vector reduction of four
+// channels (red.global.add.v4.f32, sm_90) where the maps are 16-byte aligned
+// and C % 4 == 0, else one float32 atomicAdd per tap and channel. Atomics:
+// the sum order at a map cell varies from run to run. Points that share taps
+// (a z-column of the volume grid; the samples of one ray in the view it was
+// cast from) contend for the same addresses.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,6 +86,34 @@ __device__ __forceinline__ Point make_point(float px, float py, int w, int h,
   q.owy = 1.0f - q.wy;
   q.m = m;
   return q;
+}
+
+// Phase 1 of both kernels: threads [0, kPoints) compute the quarter-res
+// taps of the block's points, the others the full-res ones.
+__device__ __forceinline__ void load_taps(const float* __restrict__ xy,
+                                          const unsigned char* __restrict__ valid,
+                                          int p0, int n, int H, int W, int fh,
+                                          int fw, int C, Point* pts,
+                                          Point* rgbs) {
+  const int t = threadIdx.x;
+  const int i1 = t % kPoints;
+  if (i1 >= n) return;
+  const int p = p0 + i1;
+  const float x = xy[2 * p];
+  const float y = xy[2 * p + 1];
+  const float m = valid[p] ? 1.0f : 0.0f;
+  // normalise by the full-res extent, then de-normalise onto each map
+  const float xn = x / static_cast<float>(W - 1) * 2.0f - 1.0f;
+  const float yn = y / static_cast<float>(H - 1) * 2.0f - 1.0f;
+  if (t < kPoints) {
+    const float qx = ((xn + 1.0f) * static_cast<float>(fw) - 1.0f) * 0.5f;
+    const float qy = ((yn + 1.0f) * static_cast<float>(fh) - 1.0f) * 0.5f;
+    pts[i1] = make_point(qx, qy, fw, fh, C, m);
+  } else {
+    const float fx = (xn + 1.0f) * 0.5f * static_cast<float>(W - 1);
+    const float fy = (yn + 1.0f) * 0.5f * static_cast<float>(H - 1);
+    rgbs[i1] = make_point(fx, fy, W, H, 3, m);
+  }
 }
 
 __device__ __forceinline__ float blend(float v00, float v01, float v10,
@@ -128,27 +174,8 @@ gather_kernel(const float* __restrict__ imgs,
   const int a = static_cast<int>(reinterpret_cast<uintptr_t>(dst) / 4 % 4);
   const int t = threadIdx.x;
 
-  // 1. per point, once: threads [0, kPoints) the quarter-res taps, the
-  //    others the full-res ones
-  const int i1 = t % kPoints;
-  if (i1 < n) {
-    const int p = p0 + i1;
-    const float x = xy[2 * p];
-    const float y = xy[2 * p + 1];
-    const float m = valid[p] ? 1.0f : 0.0f;
-    // normalise by the full-res extent, then de-normalise onto each map
-    const float xn = x / static_cast<float>(W - 1) * 2.0f - 1.0f;
-    const float yn = y / static_cast<float>(H - 1) * 2.0f - 1.0f;
-    if (t < kPoints) {
-      const float qx = ((xn + 1.0f) * static_cast<float>(fw) - 1.0f) * 0.5f;
-      const float qy = ((yn + 1.0f) * static_cast<float>(fh) - 1.0f) * 0.5f;
-      pts[i1] = make_point(qx, qy, fw, fh, C, m);
-    } else {
-      const float fx = (xn + 1.0f) * 0.5f * static_cast<float>(W - 1);
-      const float fy = (yn + 1.0f) * 0.5f * static_cast<float>(H - 1);
-      rgbs[i1] = make_point(fx, fy, W, H, 3, m);
-    }
-  }
+  // 1. per point, once: the taps of both maps
+  load_taps(xy, valid, p0, n, H, W, fh, fw, C, pts, rgbs);
   __syncthreads();
 
   // 2. kLanes lanes per point. RGB: a tap pair (x0, x1) of one image row
@@ -206,6 +233,100 @@ gather_kernel(const float* __restrict__ imgs,
   }
 }
 
+// The transpose of `blend` for one channel: g times the mask, times each tap
+// weight in the order the forward multiplied them, added into the map.
+__device__ __forceinline__ void splat(float* __restrict__ map, const Point& q,
+                                      float g) {
+  const float a = g * q.m;
+  const float top = a * q.owy;
+  const float bot = a * q.wy;
+  float* t = map + q.o00;
+  atomicAdd(t, top * q.owx);
+  atomicAdd(t + q.dx, top * q.wx);
+  atomicAdd(t + q.dy, bot * q.owx);
+  atomicAdd(t + q.dy + q.dx, bot * q.wx);
+}
+
+// Four consecutive floats of global memory, 16-byte aligned, += (a,b,c,d)
+// in one reduction.
+__device__ __forceinline__ void red4(float* p, float a, float b, float c,
+                                     float d) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "l"(__cvta_generic_to_global(p)), "f"(a), "f"(b), "f"(c),
+                  "f"(d) : "memory");
+}
+
+// `splat` of four channels at once, one vector reduction per tap.
+__device__ __forceinline__ void splat4(float* __restrict__ map, const Point& q,
+                                       float4 g) {
+  const float4 a = make_float4(g.x * q.m, g.y * q.m, g.z * q.m, g.w * q.m);
+  const float4 top = make_float4(a.x * q.owy, a.y * q.owy, a.z * q.owy,
+                                 a.w * q.owy);
+  const float4 bot = make_float4(a.x * q.wy, a.y * q.wy, a.z * q.wy,
+                                 a.w * q.wy);
+  float* t = map + q.o00;
+  red4(t, top.x * q.owx, top.y * q.owx, top.z * q.owx, top.w * q.owx);
+  red4(t + q.dx, top.x * q.wx, top.y * q.wx, top.z * q.wx, top.w * q.wx);
+  red4(t + q.dy, bot.x * q.owx, bot.y * q.owx, bot.z * q.owx, bot.w * q.owx);
+  red4(t + q.dy + q.dx, bot.x * q.wx, bot.y * q.wx, bot.z * q.wx,
+       bot.w * q.wx);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+gather_backward_kernel(const float* __restrict__ xy,
+                       const unsigned char* __restrict__ valid,
+                       const float* __restrict__ d_rgb,
+                       const float* __restrict__ d_ray,
+                       float* __restrict__ d_imgs,
+                       float* __restrict__ d_img_feats,
+                       float* __restrict__ d_ray_feats,
+                       int P, int H, int W, int fh, int fw, int C) {
+  __shared__ Point pts[kPoints], rgbs[kPoints];
+  const int R = 3 + C;
+  const int p0 = blockIdx.x * kPoints;
+  const int n = min(kPoints, P - p0);
+  {   // this block's view
+    const size_t v = blockIdx.y, vp = v * P;
+    const size_t map = v * fh * fw * C;
+    if (d_imgs != nullptr) d_imgs += v * H * W * 3;
+    d_img_feats += map;
+    d_ray_feats += map;
+    xy += 2 * vp;
+    valid += vp;
+    d_rgb += vp * R;
+    d_ray += vp * C;
+  }
+  load_taps(xy, valid, p0, n, H, W, fh, fw, C, pts, rgbs);
+  __syncthreads();
+
+  // kLanes lanes per point: lanes 0-2 the RGB channels (when asked for),
+  // and every lane four channels of both maps
+  const int t = threadIdx.x;
+  const int l = t % kLanes;
+  const int c = 4 * l;
+#pragma unroll
+  for (int k = 0; k < kPoints * kLanes / kThreads; ++k) {
+    const int i = t / kLanes + k * (kThreads / kLanes);
+    if (i >= n) continue;
+    const int p = p0 + i;
+    const float* g_rgb = d_rgb + p * R;
+    if (d_imgs != nullptr && l < 3) splat(d_imgs + l, rgbs[i], g_rgb[l]);
+    if (c >= C) continue;
+    const Point q = pts[i];
+    if constexpr (kVec) {
+      splat4(d_ray_feats + c, q, ld4(d_ray + p * C + c));
+      const float* gi = g_rgb + 3 + c;   // rows of 3 + C: not aligned
+      splat4(d_img_feats + c, q, make_float4(gi[0], gi[1], gi[2], gi[3]));
+    } else {
+      for (int j = c; j < min(c + 4, C); ++j) {
+        splat(d_img_feats + j, q, g_rgb[3 + j]);
+        splat(d_ray_feats + j, q, d_ray[p * C + j]);
+      }
+    }
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -233,5 +354,28 @@ extern "C" int epipolar_gather_forward(
     gather_kernel<false><<<grid, kThreads, 0, stream>>>(
         imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out, P, H, W, fh,
         fw, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The transpose of epipolar_gather_forward with respect to the maps: adds
+// into d_img_feats and d_ray_feats [V,fh,fw,C], and into d_imgs [V,H,W,3]
+// unless it is null; the caller zeroes them. The same 32-bit limits.
+extern "C" int epipolar_gather_backward(
+    const float* xy, const unsigned char* valid, const float* d_rgb,
+    const float* d_ray, float* d_imgs, float* d_img_feats, float* d_ray_feats,
+    int V, int P, int H, int W, int fh, int fw, int C, cudaStream_t stream) {
+  if (V == 0 || P == 0) return 0;
+  const dim3 grid((P + kPoints - 1) / kPoints, V);
+  // float4 reads of the d_ray_feats rows, vector reductions into the maps
+  const bool vec4 = C % 4 == 0 && aligned16(d_ray) &&
+                    aligned16(d_img_feats) && aligned16(d_ray_feats);
+  if (vec4)
+    gather_backward_kernel<true><<<grid, kThreads, 0, stream>>>(
+        xy, valid, d_rgb, d_ray, d_imgs, d_img_feats, d_ray_feats, P, H, W,
+        fh, fw, C);
+  else
+    gather_backward_kernel<false><<<grid, kThreads, 0, stream>>>(
+        xy, valid, d_rgb, d_ray, d_imgs, d_img_feats, d_ray_feats, P, H, W,
+        fh, fw, C);
   return static_cast<int>(cudaGetLastError());
 }

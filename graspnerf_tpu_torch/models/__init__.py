@@ -1,5 +1,5 @@
-"""nn.Modules of the volume and render paths; state-dict keys equal the
-reference's."""
+"""nn.Modules of the volume and render paths and the training forward;
+state-dict keys equal the reference's."""
 from .nn_blocks import (InstanceNorm, BasicBlock, ResidualBlock, ConvINElu,
                         UpConv, ResUNetLight, RayFeatInitNet, VisEncoder)
 from .dist_decoder import MixtureLogisticsDistDecoder, compute_prob

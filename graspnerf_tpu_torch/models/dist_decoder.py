@@ -1,7 +1,7 @@
 """Mixture-of-logistics ray-distribution decoder
 (graspnerf_tpu/models/dist_decoder.py:19-89): the fixed-interval bins of
-volume queries and the per-sample bins of rendered rays; use_vis False as
-in the shipped config."""
+volume queries, the per-sample bins of rendered rays, and the means alone
+for the depth loss; use_vis False as in the shipped config."""
 from __future__ import annotations
 
 import torch
@@ -32,6 +32,11 @@ class MixtureLogisticsDistDecoder(nn.Module):
         var = F.softplus(self.var_decoder(feats)) + self.bias_val
         aw = torch.sigmoid(self.aw_decoder(feats))
         return mean, var, aw
+
+    def predict_mean(self, feats):
+        """The mixture means alone, [...,2] (dist_decoder.py:55-58): the
+        depth loss's prediction."""
+        return F.softplus(self.mean_decoder(feats))
 
 
 def compute_prob(depth, mean, var, aw, depth_range, interval=None,

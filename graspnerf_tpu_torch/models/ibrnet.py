@@ -8,10 +8,13 @@ The geometry head and the colour blend are plain PyTorch.
 
 ∇sdf, the gradient of the SDF with respect to the query points alone, is
 the render path's third output: the JAX module takes it with a `jax.vjp` of
-the geometry head that closes over the fused features (ibrnet.py:233-236);
-here autograd runs the same head on detached features, inside a local
-`enable_grad` so that it works under the callers' `no_grad`. The volume path
-calls `geometry` and pays nothing for it.
+the geometry head that closes over the fused features (ibrnet.py:233-236).
+Here autograd differentiates the same head with respect to a separate leaf
+copy of the points. With grad enabled (training) the features stay attached
+and the gradient keeps its graph (`create_graph`), so the eikonal term
+reaches the geometry head and the view fuse through the double backward, as
+in JAX; under the callers' `no_grad` it runs in a local `enable_grad` on
+detached features. The volume path calls `geometry` and pays nothing for it.
 """
 from __future__ import annotations
 
@@ -127,13 +130,20 @@ class IBRNetNeus(nn.Module):
 
     def geometry_and_grad(self, feat_const, pts, num_valid):
         """(sdf [R,D,1], ∇sdf [Q,R',D,3]): `geometry` and the gradient of its
-        sum with respect to pts, the fused features held constant. For
-        inference: both come back detached (training's eikonal term needs
-        the double backward, which is not ported)."""
+        sum with respect to pts alone (the projection's use of the points is
+        not differentiated). With grad enabled both stay attached to the
+        weights and the fused features; under `no_grad` both come back
+        detached."""
+        if torch.is_grad_enabled():
+            p = pts.detach().requires_grad_()
+            sdf = self.geometry(feat_const, p, num_valid)
+            grad, = torch.autograd.grad(sdf, p, torch.ones_like(sdf),
+                                        create_graph=True)
+            return sdf, grad
         with torch.enable_grad():
-            pts = pts.detach().requires_grad_()
-            sdf = self.geometry(feat_const.detach(), pts, num_valid)
-            grad, = torch.autograd.grad(sdf, pts, torch.ones_like(sdf))
+            p = pts.detach().requires_grad_()
+            sdf = self.geometry(feat_const.detach(), p, num_valid)
+            grad, = torch.autograd.grad(sdf, p, torch.ones_like(sdf))
         return sdf.detach(), grad
 
     def blend(self, rgb_in, x, vis, ray_diff, mask):

@@ -1,5 +1,5 @@
-"""Generalizable NeRF renderer and grasp network, eval mode
-(graspnerf_tpu/models/renderer.py:42-216,219-241,268-323).
+"""Generalizable NeRF renderer and grasp network
+(graspnerf_tpu/models/renderer.py:42-323).
 
     6 ref images --ResUNet--> img_feats --+
                  --ResUNet--> ray_feats --+--VisEncoder--> ray_feats
@@ -13,8 +13,12 @@
 Data contract (float32, channels-last): ref = {imgs [V,H,W,3], poses
 [V,3,4] world->cam, Ks [V,3,3], depth_range [V,2], bbox3d_min [3]};
 que = {coords [qn,rn,2] (x,y), poses [qn,3,4], Ks [qn,3,3], depth_range
-[qn,2], imgs [qn,H,W,3] (optional)}. Training (jittered samples, the
-depth-loss means) is not ported.
+[qn,2], imgs [qn,H,W,3] (optional)}.
+
+Training: `forward(data, train=True, generator=g)` draws the fine samples'
+quantiles at random and, with `use_depth_loss`, the depth loss's pixels,
+in JAX's order (renderer.py:277-289); the eval path is unchanged. Run it
+with grad enabled, never under `torch.inference_mode()`.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch.nn as nn
 
 from ..ops import geometry
 from ..ops.epipolar_gather import epipolar_gather, epipolar_gather_plain
-from ..ops.interpolate import interpolate_feats
+from ..ops.interpolate import interpolate_feats, interpolate_feature_map
 from ..ops.tsdf import grid_points
 from .aggregator import NeusAggregationNet
 from .dist_decoder import MixtureLogisticsDistDecoder, compute_prob
@@ -66,6 +70,15 @@ def volume_query_points(res: int, size: float,
     return torch.flip(pts.reshape(1, res * res, res, 3), [2])
 
 
+def draw_pixels(count: int, n: int, generator: torch.Generator,
+                device) -> torch.Tensor:
+    """n distinct indices of range(count) from `generator` (drawn on the
+    generator's device), on `device`: the depth loss's one random draw, kept
+    apart so that a test can hand in another library's."""
+    return torch.randperm(count, generator=generator,
+                          device=generator.device)[:n].to(device)
+
+
 def resolve_device(device) -> torch.device:
     """`None` means the card. Without one this raises: the port never falls
     back to the CPU on its own; pass device="cpu" for that."""
@@ -88,7 +101,9 @@ class NeuralRayRenderer(nn.Module):
                  do_sample_volume: bool = True, volume_resolution: int = 40,
                  volume_size: float = 0.3, use_ray_mask: bool = True,
                  ray_mask_view_num: int = 2, ray_mask_point_num: int = 8,
-                 init_s: float = 0.3, use_kernels: bool = True):
+                 depth_loss_coords_num: int = 8192,
+                 use_depth_loss: bool = True, init_s: float = 0.3,
+                 use_kernels: bool = True):
         super().__init__()
         self.depth_sample_num = depth_sample_num
         self.fine_depth_sample_num = fine_depth_sample_num
@@ -101,6 +116,8 @@ class NeuralRayRenderer(nn.Module):
         self.use_ray_mask = use_ray_mask
         self.ray_mask_view_num = ray_mask_view_num
         self.ray_mask_point_num = ray_mask_point_num
+        self.depth_loss_coords_num = depth_loss_coords_num
+        self.use_depth_loss = use_depth_loss
         self.use_kernels = use_kernels
         self.image_encoder = ResUNetLight(3, (1, 2, 6, 4), 32, 16)
         self.init_net = RayFeatInitNet()
@@ -162,9 +179,11 @@ class NeuralRayRenderer(nn.Module):
             out["render_depth"] = torch.sum(hit_prob * que_depth, -1)
         return out
 
-    def render_rays(self, que, ref, img_feats, ray_feats):
-        """Coarse pass, then fine samples from its hit probabilities and a
-        second pass under the `_fine` keys (renderer.py:199-216)."""
+    def render_rays(self, que, ref, img_feats, ray_feats, generator=None):
+        """Coarse pass, then fine samples from its hit probabilities (no
+        gradient flows into them) and a second pass under the `_fine` keys
+        (renderer.py:199-216). With a generator the fine quantiles are drawn
+        at random; the coarse samples stay deterministic, as in JAX."""
         _, rn, _ = que["coords"].shape
         que_depth = geometry.sample_depth(que["depth_range"], rn,
                                           self.depth_sample_num)
@@ -172,8 +191,8 @@ class NeuralRayRenderer(nn.Module):
                                    False)
         if self.use_hierarchical_sampling:
             fine_depth = geometry.sample_fine_depth(
-                que_depth, out["hit_prob_nr"], que["depth_range"],
-                self.fine_depth_sample_num)
+                que_depth, out["hit_prob_nr"].detach(), que["depth_range"],
+                self.fine_depth_sample_num, generator)
             fine_depth = torch.sort(fine_depth, -1).values
             fine = self.render_by_depth(fine_depth, que, ref, img_feats,
                                         ray_feats, True)
@@ -194,22 +213,51 @@ class NeuralRayRenderer(nn.Module):
         sdf = self.agg_net.sdf(prj, que_dir, que_pts)
         return torch.flip(sdf.reshape(res, res, res), [2])
 
+    def predict_mean_for_depth_loss(self, ref, ray_feats,
+                                    generator: torch.Generator):
+        """The mixture means at n = min(depth_loss_coords_num, h*w) distinct
+        random pixels of every view, for the depth loss
+        (renderer.py:244-265): {depth_coords [V,n,2] (x, y), depth_mean_all
+        [V,n,2], depth_mean, depth_mean_2 [V,n], and the fine decoder's
+        depth_mean_fine, depth_mean_fine_2}. The coordinates are proper
+        (x, y) over the whole image (README.md:101-103)."""
+        V, h, w, _ = ref["imgs"].shape
+        n = min(self.depth_loss_coords_num, h * w)
+        idx = draw_pixels(h * w, n, generator, ray_feats.device)
+        coords = torch.stack([(idx % w).to(torch.float32),
+                              (idx // w).to(torch.float32)], -1)
+        coords = coords[None].expand(V, n, 2)
+        mask = coords.new_ones((V, n))
+        feats = interpolate_feature_map(ray_feats, coords, mask, h, w)
+        mean = self.dist_decoder.predict_mean(feats)
+        out = {"depth_coords": coords, "depth_mean_all": mean,
+               "depth_mean": mean[..., 0], "depth_mean_2": mean[..., 1]}
+        if self.use_hierarchical_sampling:
+            fine = self.fine_dist_decoder.predict_mean(feats)
+            out["depth_mean_fine"] = fine[..., 0]
+            out["depth_mean_fine_2"] = fine[..., 1]
+        return out
+
     def forward(self, data: Dict[str, Dict[str, torch.Tensor]],
-                train: bool = False, generator=None):
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """data = {"ref": ..., "que": ... (optional)} -> the render keys
-        (coarse, and `_fine`) when there is a `que`, and `volume`
-        (renderer.py:268-290, eval mode)."""
-        if train or generator is not None:
-            raise NotImplementedError(
-                "training mode (jittered depth samples, the depth-loss means) "
-                "is not ported: ROADMAP Queue 1 item 2")
+        (coarse, and `_fine`) when there is a `que`, `volume`, and with a
+        generator and `use_depth_loss` the depth-loss means
+        (renderer.py:268-290). `train` with a generator draws the fine
+        quantiles at random, before the depth-loss pixels, as JAX splits
+        its key."""
         ref, que = data["ref"], data.get("que")
         img_feats, ray_feats = self.encode_views(ref["imgs"])
         out = {}
         if self.render_rgb and que is not None:
-            out = self.render_rays(que, ref, img_feats, ray_feats)
+            out = self.render_rays(que, ref, img_feats, ray_feats,
+                                   generator if train else None)
         if self.do_sample_volume:
             out["volume"] = self.sample_volume(ref, img_feats, ray_feats)
+        if self.use_depth_loss and generator is not None:
+            out.update(self.predict_mean_for_depth_loss(ref, ray_feats,
+                                                        generator))
         return out
 
 
@@ -223,7 +271,8 @@ class GraspNeRF(nn.Module):
                                         use_kernels=use_kernels)
         self.vgn_net = VGNConvNet()
 
-    def forward(self, data, train: bool = False, generator=None):
+    def forward(self, data, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """The renderer's outputs plus `vgn_pred_full` = (qual, rot, width)
         [1,res,res,res,C] on its volume and, for data["grasp_index"] [n,3]
         voxel indices, `vgn_pred` at them (renderer.py:310-323)."""
@@ -245,16 +294,24 @@ def load_graspnerf(params: Mapping[str, torch.Tensor], device=None,
     when None, raising without one. It computes in float32: on a card this
     turns TF32 off for matmuls and cuDNN convolutions, a process-wide
     PyTorch setting. `use_kernels` False runs the kernels' plain versions
-    on the card; it exists to hold the kernels against them. Run the model
-    under `torch.no_grad()`, as the planner does: the render path's ∇sdf
-    takes its own local autograd."""
+    on the card; it exists to hold the kernels against them. For inference
+    run the model under `torch.no_grad()`, as the planner does (the render
+    path's ∇sdf takes its own local autograd); with grad enabled its
+    outputs are differentiable, for training (`train.create_train_state`).
+    Never under `torch.inference_mode()`."""
     device = resolve_device(device)
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    float32_on(device)
     model = GraspNeRF(renderer_cfg, use_kernels=use_kernels)
     model.load_state_dict(params, strict=True)
     return model.to(device).eval()
+
+
+def float32_on(device: torch.device) -> None:
+    """On a card, matmuls and cuDNN convolutions in full float32 (TF32 off),
+    a process-wide PyTorch setting."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
 
 @torch.no_grad()

@@ -1,11 +1,15 @@
 """Camera geometry, depth sampling and compositing of the volume and render
-paths (graspnerf_tpu/ops/geometry.py). Eval-mode sampling only: the jittered
-branches of `sample_depth` / `sample_fine_depth` come with training.
+paths (graspnerf_tpu/ops/geometry.py). Given a `torch.Generator`,
+`sample_depth` jitters its samples and `sample_fine_depth` draws its
+quantiles at random (training), each through `draw_uniform`; without one
+both are deterministic (eval).
 
 Conventions: `poses` are world->camera [..,3,4] (OpenCV), `Ks` pinhole
 intrinsics [..,3,3], pixel coords (x, y) in full-resolution units.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -67,26 +71,43 @@ def depth2inv_dists(depth, depth_range):
     return depth2dists(to_inv_norm(depth, depth_range))
 
 
-def sample_depth(depth_range: torch.Tensor, rn: int, dn: int) -> torch.Tensor:
+def draw_uniform(shape, generator: torch.Generator,
+                 device) -> torch.Tensor:
+    """Uniform [0, 1) float32 of `shape` from `generator` (drawn on the
+    generator's device), on `device`: the one random draw of the sampling
+    functions, kept apart so that a test can hand in another library's."""
+    return torch.rand(shape, generator=generator,
+                      device=generator.device).to(device)
+
+
+def sample_depth(depth_range: torch.Tensor, rn: int, dn: int,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """dn depths per ray, evenly spaced in inverse depth from near to far,
-    depth_range [qn,2] -> [qn,rn,dn] (geometry.py:113-131, eval branch)."""
+    depth_range [qn,2] -> [qn,rn,dn] (geometry.py:113-131); with a
+    generator the dn-2 inner ticks are jittered by up to half a step."""
     qn = depth_range.shape[0]
     near, far = depth_range[:, 0], depth_range[:, 1]
     interval = (1.0 / far - 1.0 / near) / (dn - 1)
     val = torch.arange(1, dn - 1, dtype=torch.float32, device=depth_range.device)
-    ticks = interval[:, None, None] * val.expand(qn, rn, dn - 2)
+    val = val.expand(qn, rn, dn - 2)
+    if generator is not None:
+        val = val + (draw_uniform((qn, rn, dn - 2), generator,
+                                  depth_range.device) - 0.5) * 0.999
+    ticks = interval[:, None, None] * val
     diff = 1.0 / far - 1.0 / near
     ticks = torch.cat([ticks.new_zeros((qn, rn, 1)), ticks,
                        diff[:, None, None].expand(qn, rn, 1)], -1)
     return 1.0 / (1.0 / near[:, None, None] + ticks)
 
 
-def sample_fine_depth(depth, hit_prob, depth_range, fdn: int) -> torch.Tensor:
+def sample_fine_depth(depth, hit_prob, depth_range, fdn: int,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
     """Hierarchical resampling: fdn depths per ray at the evenly spaced
-    quantiles (i + 0.5) / fdn of the per-ray hit-probability CDF, in
-    inverse depth. depth/hit_prob [qn,rn,dn] -> [qn,rn,fdn], unsorted
-    (geometry.py:134-173, eval branch; near/far from depth_range's first
-    row, as there)."""
+    quantiles (i + 0.5) / fdn of the per-ray hit-probability CDF, or at
+    uniform random ones with a generator, in inverse depth.
+    depth/hit_prob [qn,rn,dn] -> [qn,rn,fdn], unsorted (geometry.py:134-173;
+    near/far from depth_range's first row, as there)."""
     near, far = -1.0 / depth_range[0, 0], -1.0 / depth_range[0, 1]
     depth_u = (-1.0 / depth - near) / (far - near)
     mid = (depth_u[..., 1:] + depth_u[..., :-1]) * 0.5
@@ -97,8 +118,12 @@ def sample_fine_depth(depth, hit_prob, depth_range, fdn: int) -> torch.Tensor:
     cdf = torch.cumsum(pdf, -1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
 
-    u = (torch.arange(fdn, dtype=torch.float32, device=depth.device) + 0.5) / fdn
-    u = u.expand(*cdf.shape[:-1], fdn).contiguous()
+    if generator is None:
+        u = (torch.arange(fdn, dtype=torch.float32, device=depth.device)
+             + 0.5) / fdn
+        u = u.expand(*cdf.shape[:-1], fdn).contiguous()
+    else:
+        u = draw_uniform((*cdf.shape[:-1], fdn), generator, depth.device)
     # cdf is non-decreasing, so this is the JAX package's count of the
     # entries <= u
     inds = torch.searchsorted(cdf, u, right=True)

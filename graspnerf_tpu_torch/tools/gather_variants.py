@@ -68,9 +68,10 @@ VARIANTS = {
          "      if (false) {\n        const float* px"],
         ["    if (l < 3) row[l] = blend(r0, s0, r1, s1, g);\n", ""],
         ["  const int l = t % kLanes, c = 4 * l;\n",
-         "  if (t >= kPoints && i1 < n) {\n"
-         "    float* row = stage + a + i1 * R;\n"
-         "    for (int c = 0; c < 3; ++c) row[c] = sample1(imgs, rgbs[i1], c);\n"
+         "  if (t >= kPoints && t - kPoints < n) {\n"
+         "    float* row = stage + a + (t - kPoints) * R;\n"
+         "    for (int c = 0; c < 3; ++c)\n"
+         "      row[c] = sample1(imgs, rgbs[t - kPoints], c);\n"
          "  }\n  const int l = t % kLanes, c = 4 * l;\n"]],
     "taps_l2_only": [["return __ldg(reinterpret_cast<const float4*>(p));",
                       "return __ldcg(reinterpret_cast<const float4*>(p));"]],

@@ -1,7 +1,8 @@
 """A synthetic scene for the checks and tools on the card: cameras on a
 hemisphere around the workspace, looking at its centre, with random images;
 the planner's volume grid projected into them, which are the epipolar
-gather's coordinates on the main path; and query rays to render."""
+gather's coordinates on the main path; query rays to render; and a seeded
+training batch with labels."""
 from __future__ import annotations
 
 import numpy as np
@@ -61,3 +62,52 @@ def query_rays(rng: np.random.RandomState, images, poses, Ks, depth_range,
     pick = slice(view, view + 1)
     return {"coords": coords[None], "poses": poses[pick], "Ks": Ks[pick],
             "depth_range": depth_range[pick], "imgs": images[pick]}
+
+
+def training_batch(rng: np.random.RandomState, device, views: int = 6,
+                   height: int = 288, width: int = 512, n_rays: int = 512,
+                   res: int = 40, n_grasps: int = 32):
+    """A single-scene training batch (`train.trainer`'s contract) of
+    float32 / int64 tensors on `device`, seeded from rng: synthetic views;
+    n_rays random pixels of view 0 as the query, with its image; as
+    true_depth each view's depth to the plane z = 0 (camera-frame depth,
+    clipped into its depth range); sdf_gt uniform in [-1, 1] with 20 % of
+    the voxels at -1 (invalid); n_grasps random voxels with 0/1 labels,
+    pairs of unit quaternions (xyzw) and widths in [0.5, 9] voxels."""
+    images, poses, Ks, dr = synthetic_views(rng, views, height, width)
+    que = query_rays(rng, images, poses, Ks, dr, n_rays)
+    ys, xs = np.mgrid[:height, :width].astype(np.float64)
+    pix = np.stack([xs, ys, np.ones_like(xs)], -1)               # h,w,3
+    depth = []
+    for pose, K, (near, far) in zip(poses, Ks, dr):
+        R, t = pose[:, :3].astype(np.float64), pose[:, 3].astype(np.float64)
+        center = -R.T @ t
+        dirs = pix @ np.linalg.inv(K).T @ R                       # world, z_cam = 1
+        with np.errstate(divide="ignore"):
+            d = -center[2] / dirs[..., 2]
+        depth.append(np.clip(np.where(d > 0, d, far), near, far))
+    sdf_gt = rng.uniform(-1, 1, (res, res, res))
+    sdf_gt[rng.rand(res, res, res) < 0.2] = -1.0
+    q = rng.randn(n_grasps, 2, 4)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    data = {"ref": {"imgs": images, "poses": poses, "Ks": Ks,
+                    "depth_range": dr, "bbox3d_min": DEFAULT_BBOX_MIN},
+            "que": que,
+            "grasp_index": rng.randint(0, res, (n_grasps, 3))}
+    batch = {"data": data,
+             "true_depth": np.stack(depth)[..., None],
+             "sdf_gt": sdf_gt,
+             "grasp_label": rng.randint(0, 2, n_grasps).astype(np.float32),
+             "grasp_rot": q,
+             "grasp_width": rng.uniform(0.5, 9.0, n_grasps)}
+    return _tensors(batch, device)
+
+
+def _tensors(tree, device):
+    """A nested dict of numpy arrays as tensors on device: integers as
+    int64, the rest as float32."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    dtype = torch.int64 if a.dtype.kind in "iu" else torch.float32
+    return torch.as_tensor(a, device=device).to(dtype)

@@ -237,18 +237,19 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    """No module of the port, nor chip_smoke.py, names jax, flax or the JAX
-    package; and importing the port loads none of them."""
+    """No module of the port, nor chip_smoke.py, names jax, flax, optax or
+    the JAX package; and importing the port, its train step included, loads
+    none of them."""
+    banned = ("jax", "jaxlib", "flax", "optax", "graspnerf_tpu")
     files = sorted((REPO / "graspnerf_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     for f in files:
         for mod in _imports(f):
-            assert mod.split(".")[0] not in ("jax", "jaxlib", "flax",
-                                             "graspnerf_tpu"), (f, mod)
+            assert mod.split(".")[0] not in banned, (f, mod)
     code = ("import sys, graspnerf_tpu_torch.detect.planner, "
-            "graspnerf_tpu_torch.build; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'graspnerf_tpu')]; assert not bad, bad")
+            "graspnerf_tpu_torch.train, graspnerf_tpu_torch.build; "
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {banned}]; "
+            "assert not bad, bad")
     path = os.pathsep.join(filter(None, [str(REPO),
                                          os.environ.get("PYTHONPATH")]))
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

@@ -377,14 +377,6 @@ def test_forward_kernel_wrappers_take_plain_path_on_cpu(render):
             assert torch.equal(a, b), key
 
 
-def test_training_mode_raises(render):
-    model = TM.load_graspnerf(flax_to_state_dict(render["params"]), "cpu",
-                              CFG)
-    for kw in (dict(train=True), dict(generator=torch.Generator())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            model(_torch(render["data"]), **kw)
-
-
 def test_load_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
