@@ -22,18 +22,28 @@ NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
    the same card (same draws, the fine pass at equal samples), checks the
    view fuse after a weight update, times the step (forward, backward,
    optimizer) and keeps the gather's arguments of its coarse pass;
-5. holds the view fuse against its plain version at the volume path's
+5. drives the training loop (`train.Trainer.run`, the entry script's
+   loop) at full width on generated scenes -- the port's synthetic
+   generator at 288 x 512, 512 rays, 40^3, 32 grasps, four data worker
+   processes with the native tracer -- for 12 steps with logging, validation,
+   a validation image dump and checkpoints, then resumes a fresh Trainer
+   from `latest` for 2 more steps; checks the launches per step and per val
+   batch, that every logged loss is finite and no update was skipped, that
+   the restored state equals the saved one bit for bit, and the first loop
+   batch's losses and gradients against the plain versions; and prints the
+   loop's time per step, its data wait and the pipeline's own scenes/s;
+6. holds the view fuse against its plain version at the volume path's
    shapes, at ragged N around its row tile, with misaligned inputs, on the
    render's own inputs and through its backward, after checking its
    weight-pack guard, and times it;
-6. holds the gather against its plain version on the card (atol) and on
+7. holds the gather against its plain version on the card (atol) and on
    the CPU (bit-equal) on random, the planner's and the render's
    coordinates, at ragged P around its block and with misaligned inputs
    and outputs, and times it (wrapper and bare launch);
-7. holds the gather's backward kernel against autograd through the plain
+8. holds the gather's backward kernel against autograd through the plain
    version on the card and on the CPU, on random, the planner's and the
    train pass's coordinates, at ragged P and misaligned, and times it;
-8. times the planner's phases with CUDA events.
+9. times the planner's phases with CUDA events.
 
 `--profile` adds a torch.profiler breakdown of a planning call, of a
 render and of a train step by stage and by op. It prints a `kernels` JSON
@@ -46,6 +56,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -63,6 +74,11 @@ RENDER_ROWS = RENDER_RAYS * RENDER_SAMPLES   # a render pass's view-fuse rows
 TRAIN_RAYS, DEPTH_COORDS, TRAIN_GRASPS = 512, 8192, 32
 TRAIN_ROWS = TRAIN_RAYS * RENDER_SAMPLES     # a train pass's rows and points
 TRAIN_STEPS = 5        # counted steps on the main path; then >= 10 timed
+# the loop: Trainer.run on the synthetic generator's scenes at the dataset's
+# defaults (4 objects, 12 fusion views), through 4 data worker processes
+LOOP_STEPS, LOOP_RESUMED_STEPS, LOOP_WORKERS = 12, 2, 4
+LOOP_LOG_EVERY, LOOP_VAL_INTERVAL, LOOP_VAL_BATCHES, LOOP_SAVE = 4, 6, 2, 4
+PIPELINE_BATCHES = 8   # timed after the workers' queues are drained
 # the SDF output kernels scaled so that random weights leave the SDF inside
 # (-1, 1) rather than clipped, and so carrying the whole chain's error
 SDF_SCALE = 0.1
@@ -673,28 +689,33 @@ def pinned_fine_samples(fn, pinned=None):
         geometry.sample_fine_depth = original
 
 
-def train_states(dev):
-    """(kernel state, plain-version state, batch): one seeded GraspNeRF at
-    the shipped widths, the SDF output kernels scaled as for the render,
-    under `create_train_state` twice; the seeded full-width batch."""
+def train_model(use_kernels=True, seed=SEED):
+    """A seeded GraspNeRF at the shipped widths, with configs/nrvgn_sdf.yaml's
+    renderer settings (40 + 40 samples, the 40^3 volume, 8192 depth-loss
+    pixels), the SDF output kernels scaled as for the render."""
     from graspnerf_tpu_torch.models import GraspNeRF, init_parameters_
-    from graspnerf_tpu_torch.tools.scene import training_batch
-    from graspnerf_tpu_torch.train import create_train_state
     cfg = {"depth_sample_num": RENDER_SAMPLES,
            "fine_depth_sample_num": RENDER_SAMPLES, "volume_resolution": RES,
            "depth_loss_coords_num": DEPTH_COORDS}
-    sd = init_parameters_(GraspNeRF(cfg), torch.Generator().manual_seed(SEED)
-                          ).state_dict()
-    for net in ("agg_net", "fine_agg_net"):
-        sd[f"nr_net.{net}.agg_impl.out_geometry_fc.1.weight"] *= SDF_SCALE
-    states = []
-    for use_kernels in (True, False):
-        model = GraspNeRF(cfg, use_kernels=use_kernels)
-        model.load_state_dict(sd, strict=True)
-        states.append(create_train_state(model, device=dev))
+    model = init_parameters_(GraspNeRF(cfg, use_kernels=use_kernels),
+                             torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for net in (model.nr_net.agg_net, model.nr_net.fine_agg_net):
+            net.agg_impl.out_geometry_fc[1].weight *= SDF_SCALE
+    return model
+
+
+def train_states(dev):
+    """(kernel state, plain-version state, batch): the seeded `train_model`
+    under `create_train_state` with and without the kernels; the seeded
+    full-width batch."""
+    from graspnerf_tpu_torch.tools.scene import training_batch
+    from graspnerf_tpu_torch.train import create_train_state
+    kern, plain = (create_train_state(train_model(k), device=dev)
+                   for k in (True, False))
     batch = training_batch(np.random.RandomState(SEED), dev, VIEWS, HEIGHT,
                            WIDTH, TRAIN_RAYS, RES, TRAIN_GRASPS)
-    return states[0], states[1], batch
+    return kern, plain, batch
 
 
 def counts():
@@ -875,6 +896,171 @@ def run_train(dev, iters=10):
         ("optimizer", lambda: apply_gradients(kern, held.pop("grads"))))
     return {"launches": launches, "steps": TRAIN_STEPS, "args": args,
             "times": times, "stages": stages}
+
+
+# ------------------------------------------------------------------ loop
+class FirstBatch:
+    """The loader, keeping its first batch."""
+
+    def __init__(self, loader):
+        self.loader, self.first = loader, None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.loader)
+        if self.first is None:
+            self.first = batch
+        return batch
+
+    def pop_data_wait(self):
+        return self.loader.pop_data_wait()
+
+
+def loop_trainer(dev, loader, val, workdir, seed=SEED):
+    from graspnerf_tpu_torch.train import Trainer
+    return Trainer(train_model(seed=seed), loader, val_batches=val,
+                   workdir=workdir, log_every=LOOP_LOG_EVERY,
+                   val_interval=LOOP_VAL_INTERVAL, save_interval=LOOP_SAVE,
+                   seed=SEED, tensorboard=False, device=dev,
+                   val_image_dir=f"{workdir}/vis_val")
+
+
+def read_log(workdir):
+    with open(f"{workdir}/metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def check_loop_log(recs):
+    """Every step record finite with no skipped update; every val record
+    finite; a failed image dump only for want of PIL. Returns (step
+    records, val records)."""
+    logged = [r for r in recs if "sec_per_step" in r]
+    vals = [r for r in recs if r.get("val")]
+    check([r["step"] for r in logged] == list(range(
+        LOOP_LOG_EVERY, LOOP_STEPS + 1, LOOP_LOG_EVERY)),
+        f"loop: logged steps {[r['step'] for r in logged]}")
+    for r in logged + vals:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        check(not bad, f"loop: step {r['step']} not finite: {bad}")
+    for r in logged:
+        check(r["nonfinite_grad"] == 0.0, f"loop: step {r['step']} skipped")
+    for r in recs:
+        if "val_image_error" in r:
+            check("PIL" in r["val_image_error"], f"loop: the val image "
+                  f"dump failed: {r['val_image_error']}")
+    return logged, vals
+
+
+def pipeline_scenes_per_s(loader):
+    """The loader alone: its workers' queued batches drained, then the
+    rate of PIPELINE_BATCHES more."""
+    for _ in range(LOOP_WORKERS * 2):
+        next(loader)
+    t0 = time.perf_counter()
+    for _ in range(PIPELINE_BATCHES):
+        next(loader)
+    return PIPELINE_BATCHES / (time.perf_counter() - t0)
+
+
+def run_loop(dev, smi, step_ms):
+    """The training loop at full width on generated scenes: 12 steps of
+    Trainer.run, then a fresh Trainer resumed from `latest` for 2 more.
+    step_ms: the train phase's seeded-step median, printed beside the
+    loop's time per step. Returns {launches, resumed_launches, steps}."""
+    import tempfile
+    from graspnerf_tpu_torch.data import (DatasetFactory, SceneLoader,
+                                          SyntheticSceneDataset, host_cores,
+                                          native, to_device)
+    from graspnerf_tpu_torch.train import create_train_state
+    from graspnerf_tpu_torch.train.trainer import scene
+    check(native.available(), "loop: the native tracer did not build")
+    factory = DatasetFactory(SyntheticSceneDataset, h=HEIGHT, w=WIDTH,
+                             n_rays=TRAIN_RAYS, resolution=RES,
+                             n_grasps=TRAIN_GRASPS, n_objects=4,
+                             fuse_views=12)
+    val_ds = factory(SEED + 777_777)
+    t0 = time.perf_counter()
+    val = [val_ds.sample() for _ in range(LOOP_VAL_BATCHES)]
+    parent_s = (time.perf_counter() - t0) / LOOP_VAL_BATCHES
+    log(f"loop: native tracer in use (built {native.build()}); a scene in "
+        f"this process with {native.num_threads()} OpenMP threads takes "
+        f"{parent_s:.3f} s; os.cpu_count() {os.cpu_count()}, host cores "
+        f"{host_cores()}")
+    val_events = LOOP_STEPS // LOOP_VAL_INTERVAL
+    with tempfile.TemporaryDirectory() as workdir, SceneLoader(
+            factory, LOOP_WORKERS, seed=SEED, pin_memory=True) as loader:
+        trainer = loop_trainer(dev, FirstBatch(loader), val, workdir)
+        zero_counts()
+        t0 = time.perf_counter()
+        state = trainer.run(LOOP_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        log(f"loop: {LOOP_STEPS} steps in {wall:.2f} s wall (worker start "
+            f"included), launches {launches}")
+        # 3 a step; 3 per val batch and 3 for the val image's render
+        fwd = 3 * LOOP_STEPS + val_events * 3 * (LOOP_VAL_BATCHES + 1)
+        check(launches == {"view_fuse": fwd, "epipolar_gather": fwd,
+                           "epipolar_gather_backward": 3 * LOOP_STEPS},
+              f"loop: launches {launches}, not 3 a step and 3 per val batch "
+              f"and val image ({fwd} forward, {3 * LOOP_STEPS} backward)")
+        logged, vals = check_loop_log(read_log(workdir))
+        check(len(vals) == val_events, f"loop: {len(vals)} validations")
+
+        resumed = loop_trainer(dev, loader, val, workdir, seed=SEED + 1)
+        restored, start, best = resumed.restore()
+        check(start == LOOP_STEPS, f"loop: resumed at step {start}")
+        check(best == min(v["loss_vgn"] for v in vals),
+              f"loop: restored best {best}")
+        check(restored.step == state.step == LOOP_STEPS,
+              f"loop: {restored.step} updates restored, {state.step} saved")
+        for (name, a), b in zip(state.model.state_dict().items(),
+                                restored.model.state_dict().values()):
+            check(torch.equal(a, b), f"loop: restored {name} differs")
+        n_adam = 0
+        for pa, pb in zip(state.model.parameters(),
+                          restored.model.parameters()):
+            sa, sb = state.optimizer.state[pa], restored.optimizer.state[pb]
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                check(torch.equal(sa[key], sb[key]),
+                      f"loop: restored Adam {key} differs")
+                n_adam += 1
+        log(f"loop: restored from latest: step {start}, best {best}, "
+            f"{len(state.model.state_dict())} tensors of the model and "
+            f"{n_adam} of Adam bit-equal to the saved state")
+        zero_counts()
+        resumed.run(LOOP_STEPS + LOOP_RESUMED_STEPS)
+        torch.cuda.synchronize()
+        resumed_launches = counts()
+        recs = read_log(workdir)
+        run_cfg = [r for r in recs if r.get("run_config")]
+        check(len(run_cfg) == 2 and run_cfg[1]["start_step"] == LOOP_STEPS,
+              f"loop: the resumed run's config line {run_cfg[-1]}")
+        check(resumed_launches == {k: 3 * LOOP_RESUMED_STEPS
+                                   for k in resumed_launches},
+              f"loop: resumed launches {resumed_launches}")
+        pipeline = pipeline_scenes_per_s(loader)
+        batch = to_device(scene(trainer.train_iter.first, 0), dev)
+
+    kern, plain = (create_train_state(train_model(k), device=dev)
+                   for k in (True, False))
+    log("loop: the first loop batch (a generated scene), kernels vs plain "
+        "versions:")
+    compare_train(kern, plain, batch, dev)
+    sec = [r["sec_per_step"] for r in logged]
+    wait = [r["data_wait_per_step"] for r in logged]
+    log(smi)
+    log(f"loop: sec_per_step {sec} and data_wait_per_step {wait} (windows "
+        f"of {LOOP_LOG_EVERY} steps; the 2nd and 3rd hold a validation and "
+        f"checkpoints); the pipeline alone {pipeline:.3f} scenes/s with "
+        f"{LOOP_WORKERS} workers x {max(1, host_cores() // LOOP_WORKERS)} "
+        f"threads, os.cpu_count() {os.cpu_count()}; the train phase's "
+        f"seeded step median {step_ms:.1f} ms")
+    return {"launches": launches, "resumed_launches": resumed_launches,
+            "steps": LOOP_STEPS}
 
 
 def gather_backward_library(args, grads):
@@ -1151,6 +1337,7 @@ def main() -> int:
     planner, launches, inputs = run_planner(dev)
     render = run_render(dev, inputs)
     train = run_train(dev)
+    loop = run_loop(dev, smi, train["times"]["step_ms"][0])
     args = render["args"]
     rows = [check_view_fuse(dev, gen, args["view_fuse"]),
             check_gather(dev, gen, planner, inputs, args["epipolar_gather"]),
@@ -1170,9 +1357,13 @@ def main() -> int:
         row["forward_launches"] = render["launches"]["forward"].get(name, 0)
         row["train_launches"] = train["launches"][name]
         row["train_steps"] = train["steps"]
+        # the loop's 12 steps with their validations, then the resumed 2
+        row["loop_launches"] = loop["launches"][name]
+        row["loop_steps"] = loop["steps"]
+        row["loop_resumed_launches"] = loop["resumed_launches"][name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "render_launches", "train_launches")
+            "render_launches", "train_launches", "loop_launches")
     for row in rows:
         check(all(k in row for k in keys), f"{row['name']}: a key is missing")
     log(json.dumps({"kernels": [

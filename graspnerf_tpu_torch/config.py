@@ -1,5 +1,5 @@
 """The flat YAML config (configs/nrvgn_sdf.yaml) -> the port's constructor
-arguments: a copy of graspnerf_tpu/config.py:17-60, since importing that
+arguments: a copy of graspnerf_tpu/config.py:17-63, since importing that
 module imports the JAX package.
 
 The port computes in float32 and has no Pallas switch (its kernels are
@@ -53,3 +53,14 @@ def lr_cfg_from(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return {"lr_init": float(lr.get("lr_init", 1e-4)),
             "decay_step": int(lr.get("decay_step", 100_000)),
             "decay_rate": float(lr.get("decay_rate", 0.5))}
+
+
+def trainer_cfg_from(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Config keys -> `train.Trainer` keyword arguments."""
+    out = {"total_steps": cfg.get("total_step", 500_000),
+           "val_interval": cfg.get("val_interval", 5000),
+           "key_metric": cfg.get("key_metric_name", "loss_vgn")}
+    lr = lr_cfg_from(cfg)
+    if lr:
+        out["lr_cfg"] = lr
+    return out

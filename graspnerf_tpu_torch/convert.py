@@ -31,7 +31,9 @@ def _to_torch(arr: np.ndarray, leaf: str) -> np.ndarray:
         if a.ndim not in _KERNEL_PERM:
             raise ValueError(f"kernel of rank {a.ndim} has no torch layout")
         a = a.transpose(_KERNEL_PERM[a.ndim])
-    return np.ascontiguousarray(a)
+    # not np.ascontiguousarray: it returns a 0-d leaf (the NeuS variance)
+    # with a new axis of 1
+    return np.array(a, order="C")
 
 
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..data import to_device
 from ..detect.planner import DEFAULT_BBOX_MIN
 from ..models.renderer import volume_query_points
 from ..ops import geometry
@@ -100,14 +101,4 @@ def training_batch(rng: np.random.RandomState, device, views: int = 6,
              "grasp_label": rng.randint(0, 2, n_grasps).astype(np.float32),
              "grasp_rot": q,
              "grasp_width": rng.uniform(0.5, 9.0, n_grasps)}
-    return _tensors(batch, device)
-
-
-def _tensors(tree, device):
-    """A nested dict of numpy arrays as tensors on device: integers as
-    int64, the rest as float32."""
-    if isinstance(tree, dict):
-        return {k: _tensors(v, device) for k, v in tree.items()}
-    a = np.asarray(tree)
-    dtype = torch.int64 if a.dtype.kind in "iu" else torch.float32
-    return torch.as_tensor(a, device=device).to(dtype)
+    return to_device(batch, device)

@@ -1,11 +1,15 @@
-"""The train step (graspnerf_tpu/train/trainer.py:50-71, 100-173): the
-training forward (render, volume, grasp head, depth-loss means), the summed
-losses, their gradient for every parameter, and an Adam update with the
-staircase-decay learning rate, skipped when a gradient is not finite.
+"""The train step and the loop around it (graspnerf_tpu/train/trainer.py):
+the training forward (render, volume, grasp head, depth-loss means), the
+summed losses, their gradient for every parameter, an Adam update with the
+staircase-decay learning rate, skipped when a gradient is not finite; the
+scene-batched loss; and `Trainer`, the step loop with validation, image
+dumps, checkpoints and a JSONL metric log.
 
 Single-scene batch (trainer.py:18-23): {"data": the renderer's data dict
 with que["imgs"] and "grasp_index" [G,3], "true_depth" [V,H,W,1], "sdf_gt"
 [res,res,res], "grasp_label" [G], "grasp_rot" [G,2,4], "grasp_width" [G]}.
+Scene batch: the same tree with a leading S axis on every tensor
+(`data.collate_scenes`).
 
 The step runs with grad enabled, never under `torch.inference_mode()`. It
 synchronises with the card once, to test the gradients' finiteness.
@@ -13,12 +17,20 @@ synchronises with the card once, to test the gradients' finiteness.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+import json
+import math
+import os
+import subprocess
+import time
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..data.prefetch import to_device
 from ..models.renderer import GraspNeRF, float32_on, resolve_device
 from . import losses as L
+from .checkpoint import CheckpointManager
 from .schedule import exp_decay_lr
 
 
@@ -53,6 +65,28 @@ def make_loss_fn(model: GraspNeRF) -> Callable:
         outputs = model(batch["data"], train=True, generator=generator)
         ld = compute_losses(outputs, batch)
         ld["total"] = L.total_loss(ld)
+        return ld["total"], ld
+    return loss_fn
+
+
+def scene(tree, i: int):
+    """Scene i of a scene-batched tree."""
+    if isinstance(tree, dict):
+        return {k: scene(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def make_batched_loss_fn(model: GraspNeRF) -> Callable:
+    """loss_fn(batch, generator) over a scene batch: each scene's training
+    forward and losses in scene order, each drawing from `generator` in
+    turn, and the mean over the scenes of every loss and diagnostic
+    (trainer.py:74-97 vmaps over split keys instead)."""
+    single = make_loss_fn(model)
+
+    def loss_fn(batch, generator: torch.Generator):
+        per = [single(scene(batch, i), generator)[1]
+               for i in range(batch["sdf_gt"].shape[0])]
+        ld = {k: torch.stack([p[k] for p in per]).mean() for k in per[0]}
         return ld["total"], ld
     return loss_fn
 
@@ -127,3 +161,212 @@ def make_eval_step(state: TrainState) -> Callable:
                                    outputs["pixel_colors_gt"])
         return ld
     return eval_step
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step `step`'s draws: a function of (seed, step) alone,
+    so that a resumed run draws what an uninterrupted one would."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+
+
+def adam_updates(optimizer: torch.optim.Optimizer) -> int:
+    """The updates Adam has applied (its per-parameter `step`)."""
+    return max((int(s["step"]) for s in optimizer.state.values()),
+               default=0)
+
+
+def git_sha() -> Optional[str]:
+    """The short commit of the code's checkout, or None outside git."""
+    try:
+        out = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
+                             cwd=os.path.dirname(os.path.abspath(__file__)),
+                             capture_output=True, text=True, timeout=5)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip() or None
+
+
+class Trainer:
+    """Step loop, validation and checkpoints (trainer.py:176-401; ref
+    trainer.py run/val flow) on scene batches, as scripts/train.py always
+    runs the JAX one.
+
+    train_iter yields scene batches (numpy or tensors, e.g. a
+    `data.SceneLoader`); val_batches are single-scene trees. The model
+    trains on `device` (the card when None, raising without one). `run`
+    resumes from `<workdir>/ckpt/latest`, writes a run-config line and then
+    every `log_every` steps a record to `<workdir>/metrics.jsonl`
+    (synchronising with the card only there), validates every
+    `val_interval` steps (each val batch's draws from a generator seeded 0),
+    dumps a validation image and saves with `key_metric`, and saves every
+    `save_interval` steps otherwise. Step s draws from a generator seeded
+    with `step_seed(seed, s)`.
+    """
+
+    def __init__(self, model: GraspNeRF, train_iter: Iterator,
+                 val_batches=None, workdir: str = "data/train",
+                 total_steps: int = 500_000, val_interval: int = 5000,
+                 save_interval: int = 1000, lr_cfg: Optional[dict] = None,
+                 key_metric: str = "loss_vgn", log_every: int = 50,
+                 seed: int = 0, tensorboard: bool = True,
+                 val_image_dir: Optional[str] = None, device=None):
+        self.model = model
+        self.device = resolve_device(device)
+        self.train_iter = train_iter
+        self.val_batches = [to_device(b, self.device)
+                            for b in (val_batches or [])]
+        self.workdir = workdir
+        self.total_steps = total_steps
+        self.val_interval = val_interval
+        self.save_interval = save_interval
+        self.lr_cfg = lr_cfg
+        self.key_metric = key_metric
+        self.log_every = log_every
+        self.seed = seed
+        self.val_image_dir = val_image_dir
+        os.makedirs(workdir, exist_ok=True)
+        self.ckpt = CheckpointManager(os.path.join(workdir, "ckpt"))
+        self.log_path = os.path.join(workdir, "metrics.jsonl")
+        self.tb = None
+        if tensorboard:
+            try:   # the reference logs through SummaryWriter too
+                from torch.utils.tensorboard import SummaryWriter
+                self.tb = SummaryWriter(os.path.join(workdir, "tb"))
+            except Exception:   # optional: no tensorboard, no scalars there
+                self.tb = None
+
+    def _log(self, record: Dict[str, Any]):
+        rec = {k: (float(v) if isinstance(v, torch.Tensor) else v)
+               for k, v in record.items()}
+        with open(self.log_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        if self.tb is not None and "step" in rec:
+            prefix = "val/" if rec.get("val") else "train/"
+            for k, v in rec.items():
+                if isinstance(v, float):
+                    self.tb.add_scalar(prefix + k, v, rec["step"])
+
+    def _pop_data_wait(self) -> Optional[float]:
+        pop = getattr(self.train_iter, "pop_data_wait", None)
+        return pop() if pop is not None else None
+
+    def restore(self) -> Tuple[TrainState, int, float]:
+        """(train state, the step to start at, best key metric): the model
+        and Adam from `latest` when there is a checkpoint, else as they
+        are, at step 0."""
+        state = create_train_state(self.model, self.lr_cfg, self.device)
+        # onto the CPU first: load_state_dict copies the model's tensors and
+        # Adam's moments to the parameters' device and leaves Adam's step
+        # counts on the CPU, where Adam keeps them
+        ckpt = self.ckpt.restore("cpu")
+        if ckpt is None:
+            return state, 0, math.inf
+        state.model.load_state_dict(ckpt["model"])
+        state.optimizer.load_state_dict(ckpt["optimizer"])
+        state.step = adam_updates(state.optimizer)
+        return state, ckpt["step"], ckpt["best"]
+
+    def _save(self, state: TrainState, step: int, best: float,
+              key_metric: Optional[float] = None) -> float:
+        return self.ckpt.save({"model": state.model.state_dict(),
+                               "optimizer": state.optimizer.state_dict()},
+                              step, key_metric=key_metric, best=best)
+
+    def validate(self, state: TrainState) -> Dict[str, float]:
+        eval_step = make_eval_step(state)
+        agg: Dict[str, list] = {}
+        for batch in self.val_batches:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            for k, v in eval_step(batch, gen).items():
+                agg.setdefault(k, []).append(float(v))
+        return {k: float(np.mean(v)) for k, v in agg.items()}
+
+    def _dump_val_images(self, state: TrainState, step: int,
+                         stride: int = 4):
+        """Side-by-side pred/GT dump of the first val batch's query view on
+        a stride-subsampled pixel grid (ref metrics.py:86-114)."""
+        if not self.val_batches or self.val_image_dir is None:
+            return
+        try:
+            from .metrics import visualize_image
+            batch = self.val_batches[0]
+            que = batch["data"]["que"]
+            h, w = que["imgs"].shape[1:3]
+            ys = torch.arange(0, h, stride, device=self.device)
+            xs = torch.arange(0, w, stride, device=self.device)
+            gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+            coords = torch.stack([gx, gy], -1).reshape(1, -1, 2).float()
+            data = {"ref": batch["data"]["ref"],
+                    "que": {"coords": coords, "poses": que["poses"],
+                            "Ks": que["Ks"],
+                            "depth_range": que["depth_range"]}}
+            with torch.no_grad():
+                outputs = state.model(data, train=False)
+            key = ("pixel_colors_nr_fine" if "pixel_colors_nr_fine" in outputs
+                   else "pixel_colors_nr")
+            if key not in outputs:
+                return
+            pred = outputs[key].reshape(len(ys), len(xs), 3)
+            gt = que["imgs"][0][ys][:, xs]
+            visualize_image(pred, gt, self.val_image_dir, step)
+        except Exception as e:   # a failed dump must never stop training
+            self._log({"step": step, "val_image_error": repr(e)})
+
+    def run(self, max_steps: Optional[int] = None) -> TrainState:
+        host_batch = next(self.train_iter)
+        batch = to_device(host_batch, self.device)
+        state, start_step, best = self.restore()
+        steps = max_steps or self.total_steps
+        n_scenes = host_batch["sdf_gt"].shape[0]
+        n_rays = host_batch["data"]["que"]["coords"].shape[2]
+        res = host_batch["sdf_gt"].shape[-1]
+        cuda = self.device.type == "cuda"
+        self._log({"run_config": True, "git_sha": git_sha(),
+                   "torch": torch.__version__, "cuda": torch.version.cuda,
+                   "device": (torch.cuda.get_device_name(self.device)
+                              if cuda else str(self.device)),
+                   "compute_dtype": "float32",
+                   "use_kernels": state.model.nr_net.use_kernels,
+                   "scene_batch": True, "n_scenes": n_scenes,
+                   "n_rays": n_rays, "volume_res": res,
+                   "img_hw": list(host_batch["data"]["ref"]["imgs"]
+                                  .shape[-3:-1]),
+                   "start_step": start_step, "seed": self.seed,
+                   "total_steps": steps})
+        loss_fn = make_batched_loss_fn(state.model)
+        gen = torch.Generator(device=self.device)
+        self._pop_data_wait()
+        t0 = time.perf_counter()
+        for step in range(start_step, steps):
+            gen.manual_seed(step_seed(self.seed, step))
+            total, metrics = loss_fn(batch, gen)
+            grads = gradients(state, total)
+            # the next batch, fetched and copied while the card runs the
+            # backward; the update below waits for the card
+            batch = to_device(next(self.train_iter), self.device)
+            finite = apply_gradients(state, grads)
+            if (step + 1) % self.log_every == 0:
+                rec = {k: float(v.detach()) for k, v in metrics.items()}
+                rec["nonfinite_grad"] = 0.0 if finite else 1.0
+                sec = (time.perf_counter() - t0) / self.log_every
+                rec = {"step": step + 1, "sec_per_step": sec,
+                       "scenes_per_s": n_scenes / sec,
+                       "rays_per_s": n_scenes * n_rays / sec,
+                       "tsdf_queries_per_s": n_scenes * res ** 3 / sec,
+                       **rec}
+                wait = self._pop_data_wait()
+                if wait is not None:
+                    rec["data_wait_per_step"] = wait / self.log_every
+                self._log(rec)
+                t0 = time.perf_counter()
+            if (step + 1) % self.val_interval == 0 and self.val_batches:
+                val = self.validate(state)
+                self._log({"step": step + 1, "val": True, **val})
+                self._dump_val_images(state, step + 1)
+                best = self._save(state, step + 1, best,
+                                  val.get(self.key_metric))
+            elif (step + 1) % self.save_interval == 0:
+                best = self._save(state, step + 1, best)
+        if self.tb is not None:
+            self.tb.flush()
+        return state
