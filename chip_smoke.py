@@ -43,7 +43,14 @@ NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
 8. holds the gather's backward kernel against autograd through the plain
    version on the card and on the CPU, on random, the planner's and the
    train pass's coordinates, at ragged P and misaligned, and times it;
-9. times the planner's phases with CUDA events.
+9. times the planner's phases with CUDA events;
+10. the bfloat16 inference path (`compute_dtype="bfloat16"`): drives the
+   planner and the render at the same full widths through the bfloat16
+   instances of the view fuse and the gather, counts their launches, holds
+   the kernel model against the plain-version model on the same card (and
+   against the float32 kernel model: the volume's gap, the candidates'
+   overlap), times the phases; holds each bfloat16 kernel against its plain
+   version at the main path's shapes, and times it.
 
 `--profile` adds a torch.profiler breakdown of a planning call, of a
 render and of a train step by stage and by op. It prints a `kernels` JSON
@@ -125,8 +132,39 @@ TRAIN_GRAD_RTOL, GRAD_FLOOR = 2e-2, 1e-7
 #   so there each map cell is held to BWD_SUM_RTOL of the sum of the
 #   absolute values of its contributions.
 BWD_ATOL, BWD_RTOL, BWD_SUM_RTOL = 5e-4, 1e-5, 1e-4
-# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, HBM3.
+# bfloat16, kernel vs plain version on the card (the same model weights):
+# - view fuse: both round the same float32 values to bfloat16 at the same
+#   places, but sum in another order, so an operand can round one bfloat16
+#   ulp (2^-8 relative) apart and move the layers after it: num_valid
+#   exact, feat_const, x and vis within FUSE_BF16_RTOL of each output's
+#   largest magnitude.
+FUSE_BF16_RTOL = 1e-2
+# - gather: the float32 blend rounded to bfloat16, so within one bfloat16
+#   ulp of each value, or GATHER_ATOL where the float32 blends differ by
+#   PyTorch's division (near 0 an ulp is smaller than that); bit-equal to
+#   the plain version on the CPU.
+# - the bfloat16 planner and render, kernel model vs plain model: the volume
+#   within VOL_BF16_MAX (max) and VOL_BF16_MEAN (mean abs); the grasp
+#   heads, on each model's own volume, within HEAD_BF16_RTOL of each head's
+#   largest magnitude (in the planner and the render's forward); every other
+#   render output within RENDER_BF16_ATOL, the fine pass at the kernel
+#   model's fine samples.
+#   The rotation is a raw 4-vector normalised, which magnifies the
+#   volume's differences where that vector is short (0.045 on an H100 80GB
+#   HBM3 at 700 W with these weights, where qual differed by 4e-4 and the
+#   width by 0.031).
+#   A ray's last-sample alpha is a step in the sign of dir . ∇sdf
+#   (compare_outputs): at most LAST_FLIP_SHARE of the rays may flip (3 of
+#   4,096 in the coarse pass there).
+VOL_BF16_MAX, VOL_BF16_MEAN = 0.05, 0.005
+HEAD_BF16_RTOL = 1e-1
+RENDER_BF16_ATOL = 5e-2
+LAST_FLIP_SHARE = 5e-3
+BF16 = torch.bfloat16
+# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, bfloat16 on
+# the tensor cores (dense), HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
@@ -333,6 +371,7 @@ def gather_library(args):
     maps = [m.permute(0, 3, 1, 2).contiguous() for m in (imgs, f1, f2)]
     g = torch.stack([xy[..., 0] / (WIDTH - 1) * 2 - 1,
                      xy[..., 1] / (HEIGHT - 1) * 2 - 1], -1)[:, None]
+    g = g.to(imgs.dtype)
     return lambda: [F.grid_sample(m, g, mode="bilinear", padding_mode="border",
                                   align_corners=(i == 0))
                     for i, m in enumerate(maps)]
@@ -341,8 +380,19 @@ def gather_library(args):
 def gather_outputs(args, dev, shift=False):
     V, P = args[3].shape[:2]
     C = args[1].shape[3]
-    return [torch.empty(V * P * c + shift, device=dev)[int(shift):].view(V, P, c)
-            for c in (3 + C, C)]
+    return [torch.empty(V * P * c + shift, dtype=args[1].dtype, device=dev)[
+        int(shift):].view(V, P, c) for c in (3 + C, C)]
+
+
+def gather_bound(args, outs):
+    """Least time of the gather: each input read and each output written
+    once, or its multiply-adds (4 taps x (mul + add) per channel) at the
+    peak rate of the maps' type."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
+    P = args[3].shape[1]
+    flops = VIEWS * P * (3 + 2 * 32) * 4 * 2
+    peak = PEAK_BF16_FLOPS if args[1].dtype == BF16 else PEAK_F32_FLOPS
+    return bound(flops / peak, nbytes / PEAK_BYTES)
 
 
 def check_gather(dev, gen, planner, scene, render_args):
@@ -389,17 +439,13 @@ def check_gather(dev, gen, planner, scene, render_args):
     for name in (vol, planned, render, rendered):
         args = cases[name]
         outs = gather_outputs(args, dev)
-        nbytes = (sum(t.numel() * t.element_size() for t in args)
-                  + sum(t.numel() * 4 for t in outs))
-        P = args[3].shape[1]
-        flops = VIEWS * P * (3 + 2 * 32) * 4 * 2     # 4 taps x (mul + add)
         times[name] = {
             "ms": cuda_time(lambda: eg.epipolar_gather(*args)),
             "kernel_ms": cuda_time(eg.launcher(*args, *outs)),
             "host_ms": host_time(lambda: eg.epipolar_gather(*args)),
             "plain_ms": cuda_time(lambda: eg.epipolar_gather_plain(*args)),
             "library_ms": cuda_time(gather_library(args)),
-            **bound(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)}
+            **gather_bound(args, outs)}
         log(f"epipolar_gather {name} (ms: the wrapper; kernel_ms: the bare "
             f"launch into preallocated outputs; host_ms: the wrapper's host "
             f"time per call): {json.dumps(times[name])}")
@@ -429,38 +475,50 @@ def cand_set(cand):
         cand.rotations[keep].tolist(), cand.widths[keep].tolist())}
 
 
-def run_planner(dev):
-    from graspnerf_tpu_torch.detect.planner import GraspNeRFPlanner
-    from graspnerf_tpu_torch.detect.postprocess import nms, process
+def planner_params():
+    """The planners' seeded weights at the shipped widths."""
     from graspnerf_tpu_torch.models import GraspNeRF, init_parameters_
-    from graspnerf_tpu_torch.ops.epipolar_gather import epipolar_gather
-    from graspnerf_tpu_torch.ops.view_fuse import view_fuse
-    from graspnerf_tpu_torch.tools.scene import synthetic_views
-
     model = init_parameters_(GraspNeRF(), torch.Generator().manual_seed(SEED))
     sd = model.state_dict()
     # widths inside process()'s [1.33, 9.33] voxel window, so that random
     # weights leave candidates
     sd["vgn_net.conv_width.bias"].fill_(4.0)
+    return sd
+
+
+def pick_threshold(planner, inputs, what="planner"):
+    """The quality threshold of `planner` on this scene: at the widest gap
+    between consecutive quality peaks among the best 4..48, so that the
+    candidate set has a margin on both sides and top-k's max_candidates
+    cuts nothing."""
+    from graspnerf_tpu_torch.detect.postprocess import nms, process
+    ref = planner.scene(*inputs)
+    vol, (qual, rot, width), _ = planner.volume(
+        ref, *planner.encode(ref["imgs"]))
+    peaks = nms(process(vol, qual[0, ..., 0], width[0, ..., 0]), 0.0)
+    top = torch.sort(peaks[peaks > 0], descending=True).values.tolist()
+    check(len(top) > 4, f"{what}: only {len(top)} quality peaks")
+    k = max(range(4, min(48, len(top) - 1) + 1),
+            key=lambda i: top[i - 1] - top[i])
+    thr = (top[k - 1] + top[k]) / 2
+    log(f"{what}: qual_threshold {thr:.6f}: {k} of {len(top)} quality "
+        f"peaks pass, gap to the next {top[k - 1] - top[k]:.3e}")
+    return thr
+
+
+def run_planner(dev):
+    from graspnerf_tpu_torch.detect.planner import GraspNeRFPlanner
+    from graspnerf_tpu_torch.ops.epipolar_gather import epipolar_gather
+    from graspnerf_tpu_torch.ops.view_fuse import view_fuse
+    from graspnerf_tpu_torch.tools.scene import synthetic_views
+
+    sd = planner_params()
     images, poses, Ks, dr = synthetic_views(
         np.random.RandomState(SEED), VIEWS, HEIGHT, WIDTH)
     kern = GraspNeRFPlanner(sd, device=dev)
     plain = GraspNeRFPlanner(sd, device=dev, use_kernels=False)
-
-    # the threshold: at the widest gap between consecutive quality peaks of
-    # this scene among the best 4..48, so that the candidate set has a margin
-    # on both sides and top-k's max_candidates cuts nothing
-    ref = kern.scene(images, poses, Ks, dr)
-    vol, (qual, rot, width), _ = kern.volume(ref, *kern.encode(ref["imgs"]))
-    peaks = nms(process(vol, qual[0, ..., 0], width[0, ..., 0]), 0.0)
-    top = torch.sort(peaks[peaks > 0], descending=True).values.tolist()
-    check(len(top) > 4, f"only {len(top)} quality peaks")
-    k = max(range(4, min(48, len(top) - 1) + 1),
-            key=lambda i: top[i - 1] - top[i])
-    thr = (top[k - 1] + top[k]) / 2
+    thr = pick_threshold(kern, (images, poses, Ks, dr))
     kern.qual_threshold = plain.qual_threshold = thr
-    log(f"planner: qual_threshold {thr:.6f}: {k} of {len(top)} quality "
-        f"peaks pass, gap to the next {top[k - 1] - top[k]:.3e}")
 
     view_fuse.launches = epipolar_gather.launches = 0
     wall = []
@@ -546,10 +604,38 @@ def flat(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def compare_outputs(got, want, what):
+# where a ray's last-sample flip (compare_outputs' flip_share) leaves a key
+# uncompared: the last sample, or the whole ray
+FLIP_EXEMPT = {"alpha_values": "last", "hit_prob_nr": "last",
+               "pixel_colors_nr": "ray", "render_depth": "ray"}
+
+
+HEAD_KEYS = ("vgn_pred_full", "vgn_pred")
+
+
+def compare_outputs(got, want, what, atol=RENDER_ATOL, flip_share=None,
+                    head_rtol=None):
     """Every key of `want` against `got`: bool keys equal, the rest within
-    RENDER_ATOL. Returns {key: max abs err}."""
-    errs = {}
+    atol, the grasp heads (HEAD_KEYS) within head_rtol of each head's
+    largest magnitude when it is given. Returns {key: max abs err}, and with
+    flip_share the flipped rays' count under "last_sample_flips".
+
+    flip_share: the last sample of a ray has an interval of 1e6 m
+    (geometry.depth2dists), so its NeuS alpha is a step in the sign of
+    dir . ∇sdf: ~0 on one side, 1 on the other. Where ∇sdf is nearly
+    perpendicular to the ray, a difference in ∇sdf's last bits can flip
+    it. A ray whose last-sample alpha differs beyond atol counts as
+    flipped; at most flip_share of the rays may be, and there the last
+    sample's alpha and hit probability and the ray's composited colour and
+    depth are left out (FLIP_EXEMPT); everything else is compared."""
+    errs, flipped = {}, None
+    if flip_share is not None:
+        a_g, a_w = got["alpha_values"][..., -1], want["alpha_values"][..., -1]
+        flipped = (a_g - a_w).abs() > atol
+        n = int(flipped.sum())
+        check(n <= flip_share * flipped.numel(), f"render {what}: {n} of "
+              f"{flipped.numel()} rays' last-sample alphas flipped")
+        errs["last_sample_flips"] = n
     for key in sorted(want):
         for g, w in zip(flat(got[key]), flat(want[key])):
             check(g.shape == w.shape, f"render {what} {key}: shape")
@@ -557,43 +643,78 @@ def compare_outputs(got, want, what):
                 check(torch.equal(g, w), f"render {what} {key} differs")
                 e = 0.0
             else:
-                e = max_err(g, w)
-                check(e <= RENDER_ATOL, f"render {what} {key}: {e:.3e}")
+                d = (g.double() - w.double()).abs()
+                if flipped is not None and key in FLIP_EXEMPT:
+                    keep = torch.ones_like(d, dtype=torch.bool)
+                    if FLIP_EXEMPT[key] == "last":
+                        keep[..., -1] = ~flipped
+                    else:
+                        keep &= ~flipped.reshape(
+                            flipped.shape + (1,) * (d.dim() - flipped.dim()))
+                    d = d[keep]
+                e = float(d.max()) if d.numel() else 0.0
+                tol = atol
+                if head_rtol is not None and key in HEAD_KEYS:
+                    tol = head_rtol * float(w.abs().max())
+                check(e <= tol, f"render {what} {key}: {e:.3e}")
             errs[key] = max(errs.get(key, 0.0), e)
     return errs
 
 
-def compare_render(out, want, plain, data):
+def compare_render(out, want, plain, data, atol=RENDER_ATOL,
+                   depth_atol=FINE_DEPTH_ATOL, what="render", flip_share=None,
+                   head_rtol=None):
     """The kernel model's forward `out` against the plain model's `want`:
-    the coarse pass, volume and heads directly; the fine pass at the kernel
-    model's own fine samples, since the inverse CDF magnifies the coarse
-    pass's differences (FINE_DEPTH_ATOL). Returns those fine samples."""
+    the coarse pass, volume and heads directly (atol; flip_share and
+    head_rtol as in compare_outputs); the fine pass at the kernel model's own fine samples,
+    since the inverse CDF magnifies the coarse pass's differences (the
+    samples held to depth_atol, unless it is None). Returns those fine
+    samples."""
     from graspnerf_tpu_torch.ops import geometry
     ref, que = data["ref"], data["que"]
     dr = que["depth_range"]
     nr = plain.nr_net
     errs = compare_outputs(out, {k: v for k, v in want.items()
-                                 if not k.endswith("_fine")}, "coarse")
+                                 if not k.endswith("_fine")}, "coarse", atol,
+                           flip_share, head_rtol)
     coarse_depth = geometry.sample_depth(dr, RENDER_RAYS, RENDER_SAMPLES)
     with torch.no_grad():
         fine_depth = [torch.sort(geometry.sample_fine_depth(
             coarse_depth, o["hit_prob_nr"], dr, RENDER_SAMPLES), -1).values
             for o in (out, want)]
         e_depth = max_err(*fine_depth)
-        check(e_depth <= FINE_DEPTH_ATOL, f"fine samples: {e_depth:.3e} m")
+        check(depth_atol is None or e_depth <= depth_atol,
+              f"{what} fine samples: {e_depth:.3e} m")
         fine = nr.render_by_depth(fine_depth[0], que, ref,
                                   *nr.encode_views(ref["imgs"]), True)
     errs.update({k + "_fine": v for k, v in compare_outputs(
-        {k: out[k + "_fine"] for k in fine}, fine, "fine").items()})
+        {k: out[k + "_fine"] for k in fine}, fine, "fine", atol,
+        flip_share).items()})
     sdf = torch.cat([out["sdf_values"], out["sdf_values_fine"]]).flatten()
-    log(f"render vs plain versions (atol {RENDER_ATOL}, ray masks exact): "
+    log(f"{what} vs plain versions (atol {atol}, ray masks exact): "
         + json.dumps({k: float(f"{e:.3e}") for k, e in errs.items()}))
-    log(f"render: fine samples {e_depth:.3e} m from the plain model's "
-        f"(atol {FINE_DEPTH_ATOL}); sdf range [{float(sdf.min()):.3f}, "
+    log(f"{what}: fine samples {e_depth:.3e} m from the plain model's "
+        f"(atol {depth_atol}); sdf range [{float(sdf.min()):.3f}, "
         f"{float(sdf.max()):.3f}], {float((sdf == 1).float().mean()):.3f} "
         f"seen by no view, {float((sdf == -1).float().mean()):.3f} at -1; "
         f"ray_mask {int(out['ray_mask'].sum())} / {RENDER_RAYS}")
     return fine_depth[0]
+
+
+RENDER_CFG = {"depth_sample_num": RENDER_SAMPLES,
+              "fine_depth_sample_num": RENDER_SAMPLES,
+              "volume_resolution": RES}
+
+
+def render_params():
+    """The render's seeded weights at the shipped widths, the SDF output
+    kernels scaled by SDF_SCALE."""
+    from graspnerf_tpu_torch.models import GraspNeRF, init_parameters_
+    sd = init_parameters_(GraspNeRF(), torch.Generator().manual_seed(SEED)
+                          ).state_dict()
+    for net in ("agg_net", "fine_agg_net"):
+        sd[f"nr_net.{net}.agg_impl.out_geometry_fc.1.weight"] *= SDF_SCALE
+    return sd
 
 
 def run_render(dev, inputs, iters=10):
@@ -602,18 +723,13 @@ def run_render(dev, inputs, iters=10):
     versions on the same card, and times the phases. Returns {launches,
     args: the kernels' arguments in the coarse pass, times, stages: the
     (name, call) of a render's stages for the profile}."""
-    from graspnerf_tpu_torch.models import (GraspNeRF, init_parameters_,
-                                            load_graspnerf)
+    from graspnerf_tpu_torch.models import load_graspnerf
     from graspnerf_tpu_torch.ops import geometry
     from graspnerf_tpu_torch.ops.epipolar_gather import epipolar_gather
     from graspnerf_tpu_torch.ops.view_fuse import view_fuse
 
-    sd = init_parameters_(GraspNeRF(), torch.Generator().manual_seed(SEED)
-                          ).state_dict()
-    for net in ("agg_net", "fine_agg_net"):
-        sd[f"nr_net.{net}.agg_impl.out_geometry_fc.1.weight"] *= SDF_SCALE
-    cfg = {"depth_sample_num": RENDER_SAMPLES,
-           "fine_depth_sample_num": RENDER_SAMPLES, "volume_resolution": RES}
+    sd = render_params()
+    cfg = RENDER_CFG
     kern = load_graspnerf(sd, dev, cfg)
     plain = load_graspnerf(sd, dev, cfg, use_kernels=False)
     render_only = load_graspnerf(sd, dev, dict(cfg, do_sample_volume=False)
@@ -669,6 +785,305 @@ def run_render(dev, inputs, iters=10):
                                          "fine_pass")))
     return {"launches": launches, "args": args, "times": times,
             "stages": stages}
+
+
+# -------------------------------------------------------------- bfloat16
+BF16_CFG = {"compute_dtype": "bfloat16"}
+
+
+def check_bf16_launches(what, expect=None):
+    """The bfloat16 instances' counts since zero_counts(): each kernel
+    launched (`expect` times each, when given), and every launch of the
+    forward kernels a bfloat16 one. Returns {row name: launches}."""
+    launched, total = bf16_counts()
+    for name, n in launched.items():
+        check(n > 0 if expect is None else n == expect,
+              f"{what}: {name} launched {n} times")
+        check(total[name] == n, f"{what}: {total[name] - n} float32 "
+              f"launches of {name}'s kernel in a bfloat16 model")
+    return launched
+
+
+def run_planner_bf16(dev, inputs, planner32):
+    """The planner in bfloat16 at full width through the bfloat16 kernels:
+    N_CALLS calls counted, the kernel model against the plain-version model
+    (volume, heads, candidates) and against the float32 kernel model
+    `planner32` (the volume's gap, the candidates' overlap at its
+    threshold), phase times. Returns (planner, launches per call)."""
+    from graspnerf_tpu_torch.detect.planner import GraspNeRFPlanner
+    sd = planner_params()
+    kern = GraspNeRFPlanner(sd, device=dev, renderer_cfg=BF16_CFG)
+    plain = GraspNeRFPlanner(sd, device=dev, renderer_cfg=BF16_CFG,
+                             use_kernels=False)
+    thr = pick_threshold(kern, inputs, "planner bf16")
+    kern.qual_threshold = plain.qual_threshold = thr
+
+    zero_counts()
+    wall = []
+    for _ in range(N_CALLS):
+        vol_k, cand_k, dt = kern.core(*inputs)
+        wall.append(dt)
+    launches = check_bf16_launches("planner bf16")
+    log(f"planner bf16: {N_CALLS} calls, core() seconds {wall}, launches "
+        f"{launches}")
+    check(vol_k.dtype == torch.float32 and vol_k.shape == (RES,) * 3
+          and bool(torch.isfinite(vol_k).all()), "bf16 volume dtype / finite")
+
+    vol_p, cand_p, _ = plain.core(*inputs)
+    e_max, e_mean = max_err(vol_k, vol_p), float((vol_k - vol_p).abs().mean())
+    check(e_max <= VOL_BF16_MAX and e_mean <= VOL_BF16_MEAN,
+          f"bf16 volume vs plain: max {e_max:.3e}, mean {e_mean:.3e}")
+    with torch.no_grad():
+        heads_k = kern.model.vgn_net(vol_k[None, ..., None])
+        heads_p = plain.model.vgn_net(vol_p[None, ..., None])
+    e_heads = {}
+    for name, a, b in zip(("qual", "rot", "width"), heads_k, heads_p):
+        check(a.dtype == torch.float32 and bool(torch.isfinite(a).all()),
+              f"bf16 {name} dtype / finite")
+        scale = float(b.abs().max())
+        e_heads[name] = max_err(a, b)
+        check(e_heads[name] <= HEAD_BF16_RTOL * scale,
+              f"bf16 {name} vs plain: {e_heads[name]:.3e} (scale {scale:.3e})")
+    ck, cp = cand_set(cand_k), cand_set(cand_p)
+    check(len(ck) > 0, "bf16: no candidates")
+    same = len(set(ck) & set(cp))
+    log(f"planner bf16 vs plain versions: volume max {e_max:.3e} (bound "
+        f"{VOL_BF16_MAX}), mean {e_mean:.3e} (bound {VOL_BF16_MEAN}); heads "
+        + json.dumps({k: float(f"{e:.3e}") for k, e in e_heads.items()})
+        + f" (within {HEAD_BF16_RTOL} of each one's scale); candidates "
+        f"{len(ck)} and {len(cp)}, {same} in both")
+
+    vol32, cand32, _ = planner32.core(*inputs)
+    kern.qual_threshold = planner32.qual_threshold
+    _, cand16 = kern.detect(vol_k)
+    kern.qual_threshold = thr
+    c16, c32 = cand_set(cand16), cand_set(cand32)
+    log(f"planner bf16 vs the float32 kernel model: volume max "
+        f"{max_err(vol_k, vol32):.3e}, mean "
+        f"{float((vol_k - vol32).abs().mean()):.3e}; at the float32 "
+        f"threshold {len(c16)} bf16 and {len(c32)} float32 candidates, "
+        f"{len(set(c16) & set(c32))} in both; sdf range "
+        f"[{float(vol_k.min()):.3f}, {float(vol_k.max()):.3f}]")
+    return kern, launches
+
+
+def run_render_bf16(dev, inputs, iters=10):
+    """The render path in bfloat16 at full width through the bfloat16
+    kernels: launches of a render and of a forward, every output against
+    the plain-version model (the fine pass at the kernel model's fine
+    samples), phase times. Returns {launches, args, times}."""
+    from graspnerf_tpu_torch.models import load_graspnerf
+    from graspnerf_tpu_torch.ops import geometry
+    sd = render_params()
+    cfg = dict(RENDER_CFG, **BF16_CFG)
+    kern = load_graspnerf(sd, dev, cfg)
+    plain = load_graspnerf(sd, dev, cfg, use_kernels=False)
+    render_only = load_graspnerf(sd, dev, dict(cfg, do_sample_volume=False)
+                                 ).nr_net
+    data = render_data(inputs, dev)
+    ref, que = data["ref"], data["que"]
+    launches = {}
+    with torch.no_grad():
+        kern(data)
+        for name, fn, n in (("render", lambda: render_only(data), 2),
+                            ("forward", lambda: kern(data), 3)):
+            zero_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            launches[name] = check_bf16_launches(f"render bf16 {name}", n)
+        want = plain(data)
+    log(f"render bf16: launches {launches}")
+    for key, value in out.items():
+        for v in flat(value):
+            check(v.dtype in (torch.bool, torch.float32)
+                  and (v.dtype == torch.bool or bool(torch.isfinite(v).all())),
+                  f"render bf16 {key}: dtype {v.dtype} / finite")
+    compare_render(out, want, plain, data, RENDER_BF16_ATOL, None,
+                   "render bf16", LAST_FLIP_SHARE, HEAD_BF16_RTOL)
+    knr = kern.nr_net
+    with torch.no_grad():
+        feats = knr.encode_views(ref["imgs"])
+        phases = {"encode": lambda: knr.encode_views(ref["imgs"]),
+                  "render": lambda: knr.render_rays(que, ref, *feats),
+                  "render_plain": lambda: plain.nr_net.render_rays(
+                      que, ref, *feats),
+                  "forward": lambda: kern(data)}
+        times = {name + "_ms": event_ms(fn, iters)
+                 for name, fn in phases.items()}
+        coarse_depth = geometry.sample_depth(que["depth_range"], RENDER_RAYS,
+                                             RENDER_SAMPLES)
+        args, _ = capture_kernel_args(lambda: knr.render_by_depth(
+            coarse_depth, que, ref, *feats, False))
+    log(f"render bf16 phases (median, min, max of {iters}) "
+        + json.dumps(times))
+    return {"launches": launches, "args": args, "times": times}
+
+
+def fuse_bound_bf16(n):
+    """Least time of the bfloat16 view fuse over n rows: its multiply-adds
+    at the bfloat16 tensor-core rate, or its bytes (bfloat16 inputs, x,
+    vis and feat_const; float32 num_valid and weight pack)."""
+    from graspnerf_tpu_torch.ops.view_fuse import LAYER_DIMS, PACK_FLOATS
+    macs = n * (VIEWS * sum(i * o for i, o in LAYER_DIMS) - 5 * 140 * 64)
+    nbytes = (2 * (VIEWS * n * (35 + 32 + 4 + 1) + n * 65 + VIEWS * n * 33)
+              + 4 * (n + PACK_FLOATS))
+    return bound(2 * macs / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
+
+
+def check_view_fuse_bf16(dev, gen, render_args):
+    """The view fuse's bfloat16 instance against its plain version on the
+    card (num_valid exact, the rest within FUSE_BF16_RTOL of each output's
+    scale), at ragged N, shifted inputs (element loads), N = 64,000, the
+    render pass's N on random and on the bfloat16 render's own inputs; and
+    its times. Returns its `kernels` row."""
+    from graspnerf_tpu_torch.ops.view_fuse import view_fuse, view_fuse_plain
+    weights = fuse_weights(gen, dev)
+
+    def compare(name, ins, w):
+        got = view_fuse(*ins, w, BF16)
+        torch.cuda.synchronize()
+        want = view_fuse_plain(*ins, w, BF16)
+        check(torch.equal(got[1], want[1]), f"view_fuse_bf16 num_valid {name}")
+        rel = {}
+        for what, i in (("feat_const", 0), ("x", 2), ("vis", 3)):
+            g, p = got[i], want[i]
+            check(g.dtype == BF16 and bool(torch.isfinite(g).all()),
+                  f"view_fuse_bf16 {what} dtype / finite")
+            rel[what] = max_err(g, p) / max(float(p.abs().max()), 1e-30)
+            check(rel[what] <= FUSE_BF16_RTOL,
+                  f"view_fuse_bf16 {what} {name}: {rel[what]:.3e} of its scale")
+        err = max(max_err(g, p) for g, p in zip(got, want))
+        log(f"view_fuse_bf16 {name}: max_abs_err {err:.3e}, of each output's "
+            f"scale " + json.dumps({k: float(f"{v:.3e}") for k, v in
+                                    rel.items()})
+            + f" (bound {FUSE_BF16_RTOL}; num_valid exact)")
+        return err
+
+    errs = {}
+    for n in (1, 31, 33, 1000, RES ** 3, "1000 shifted"):
+        ins = fuse_inputs(gen, 1000 if n == "1000 shifted" else n, dev)
+        ins = [t.to(BF16) for t in ins]
+        if n == "1000 shifted":   # one element off 16 bytes: element loads
+            ins = [shifted(t) for t in ins]
+        errs[n] = compare(f"N={n}", ins, weights)
+    render = f"render N={RENDER_ROWS}"
+    render_args = (*render_args[:4],
+                   [(a.detach(), b.detach()) for a, b in render_args[4]])
+    errs[render] = compare(render + " (the bf16 coarse pass's inputs)",
+                           render_args[:4], render_args[4])
+    times = {}
+    for n in (RES ** 3, RENDER_ROWS, render):
+        if n == render:
+            ins, w = render_args[:4], render_args[4]
+        else:
+            ins, w = [t.to(BF16) for t in fuse_inputs(gen, n, dev)], weights
+        times[n] = {"ms": cuda_time(lambda: view_fuse(*ins, w, BF16)),
+                    "plain_ms": cuda_time(
+                        lambda: view_fuse_plain(*ins, w, BF16)),
+                    **fuse_bound_bf16(ins[0].shape[1])}
+        log(f"view_fuse_bf16 {n if n == render else f'random N={n}'}: "
+            + json.dumps(times[n]))
+        del ins
+    return {"name": "view_fuse_bf16", "route": "cuda",
+            "source": "graspnerf_tpu_torch/csrc/view_fuse.cu",
+            "replaces": "graspnerf_tpu/ops/pallas/ibrnet_fuse.py:115",
+            "max_abs_err": errs[RES ** 3], "library_ms": None,
+            **times[RES ** 3], "ms_163840": times[RENDER_ROWS]["ms"],
+            "plain_ms_163840": times[RENDER_ROWS]["plain_ms"],
+            "bound_ms_163840": times[RENDER_ROWS]["bound_ms"],
+            "render_ms": times[render]["ms"],
+            "render_plain_ms": times[render]["plain_ms"],
+            "render_max_abs_err": errs[render]}
+
+
+def bf16_ulp(t):
+    """One bfloat16 ulp at each value's magnitude (0 at 0)."""
+    a = t.float().abs()
+    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7),
+                       torch.zeros_like(a))
+
+
+def check_gather_bf16(dev, gen, planner, scene, render_args):
+    """The gather's bfloat16 instance against its plain version on the card
+    (each value within one bfloat16 ulp, or GATHER_ATOL) and on the CPU
+    (bit-equal), invalid points 0, on random, the bfloat16 planner's and
+    the bfloat16 render's coordinates, at ragged P and shifted; that a map
+    requiring a gradient is refused; and its times. Returns its row."""
+    from graspnerf_tpu_torch.ops import epipolar_gather as eg
+    bf = lambda a: [t.to(BF16) for t in a[:3]] + list(a[3:])  # noqa: E731
+    xy = bf(gather_inputs(gen, dev, 64))
+    try:
+        with torch.enable_grad():
+            eg.epipolar_gather(xy[0], xy[1].requires_grad_(), *xy[2:])
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "gather bf16: a map requiring a gradient was taken")
+
+    vol, render = f"random P={RES ** 3}", f"random P={RENDER_ROWS}"
+    planned, rendered = f"planner P={RES ** 3}", f"render P={RENDER_ROWS}"
+    planner_args = planner_gather_inputs(planner, scene)
+    cases = {vol: bf(gather_inputs(gen, dev)),
+             planned: [*planner.model.nr_net.gather_maps(*planner_args[:3]),
+                       *planner_args[3:]],
+             render: bf(gather_inputs(gen, dev, RENDER_ROWS)),
+             rendered: list(render_args)}
+    for P in (1, 31, 33):
+        cases[f"random P={P}"] = bf(gather_inputs(gen, dev, P))
+    cases["random P=1000 shifted"] = [
+        shifted(t) for t in bf(gather_inputs(gen, dev, 1000))]
+    errs = {}
+    for name, args in cases.items():
+        check(args[0].dtype == args[1].dtype == BF16, f"{name}: maps bf16")
+        if name.endswith("shifted"):
+            got = eg.launcher(*args, *gather_outputs(args, dev, True))()
+        else:
+            got = eg.epipolar_gather(*args)
+        torch.cuda.synchronize()
+        want = eg.epipolar_gather_plain(*args)
+        cpu = eg.epipolar_gather_plain(*[t.cpu() for t in args])
+        valid = args[4]
+        for g, w, c, what in zip(got, want, cpu, ("rgb_feats", "ray_feats")):
+            check(g.dtype == BF16, f"gather bf16 {what}: dtype {g.dtype}")
+            over = ((g.float() - w.float()).abs()
+                    - torch.clamp(bf16_ulp(w), min=GATHER_ATOL)).max()
+            check(float(over) <= 0, f"gather bf16 {what} {name}: beyond one "
+                  f"ulp (max err {max_err(g, w)})")
+            check(torch.equal(g.cpu(), c), f"gather bf16 {what} {name}: not "
+                  f"bit-equal to the plain version on the CPU")
+            check(bool((g[~valid] == 0).all()),
+                  f"gather bf16 {what} {name}: invalid points not 0")
+        errs[name] = max(max_err(g, w) for g, w in zip(got, want))
+        log(f"epipolar_gather_bf16 {name}: max_abs_err {errs[name]:.3e} vs "
+            f"the plain version on the card (each value within one bf16 ulp "
+            f"or {GATHER_ATOL}), bit-equal to it on the CPU, invalid points 0")
+    times = {}
+    for name in (vol, planned, render, rendered):
+        args = cases[name]
+        outs = gather_outputs(args, dev)
+        times[name] = {
+            "ms": cuda_time(lambda: eg.epipolar_gather(*args)),
+            "kernel_ms": cuda_time(eg.launcher(*args, *outs)),
+            "plain_ms": cuda_time(lambda: eg.epipolar_gather_plain(*args)),
+            "library_ms": cuda_time(gather_library(args)),
+            **gather_bound(args, outs)}
+        log(f"epipolar_gather_bf16 {name} (ms: the wrapper; kernel_ms: the "
+            f"bare launch): {json.dumps(times[name])}")
+    return {"name": "epipolar_gather_bf16", "route": "cuda",
+            "source": "graspnerf_tpu_torch/csrc/epipolar_gather.cu",
+            "replaces": "graspnerf_tpu/ops/fused_gather.py:233",
+            "max_abs_err": errs[vol], **times[vol],
+            "ms_163840": times[render]["ms"],
+            "kernel_ms_163840": times[render]["kernel_ms"],
+            "bound_ms_163840": times[render]["bound_ms"],
+            "planner_ms": times[planned]["ms"],
+            "planner_kernel_ms": times[planned]["kernel_ms"],
+            "render_ms": times[rendered]["ms"],
+            "render_kernel_ms": times[rendered]["kernel_ms"],
+            "render_plain_ms": times[rendered]["plain_ms"],
+            "render_library_ms": times[rendered]["library_ms"],
+            "render_bound_ms": times[rendered]["bound_ms"],
+            "render_max_abs_err": errs[rendered]}
 
 
 # ------------------------------------------------------------ train step
@@ -732,7 +1147,19 @@ def zero_counts():
         epipolar_gather, epipolar_gather_backward)
     from graspnerf_tpu_torch.ops.view_fuse import view_fuse
     view_fuse.launches = epipolar_gather.launches = 0
+    view_fuse.bf16_launches = epipolar_gather.bf16_launches = 0
     epipolar_gather_backward.launches = 0
+
+
+def bf16_counts():
+    """{bfloat16 row name: launches of that instance}, and the launches of
+    both instances of each forward kernel."""
+    from graspnerf_tpu_torch.ops.epipolar_gather import epipolar_gather
+    from graspnerf_tpu_torch.ops.view_fuse import view_fuse
+    return ({"view_fuse_bf16": view_fuse.bf16_launches,
+             "epipolar_gather_bf16": epipolar_gather.bf16_launches},
+            {"view_fuse_bf16": view_fuse.launches,
+             "epipolar_gather_bf16": epipolar_gather.launches})
 
 
 def compare_train(kern, plain, batch, dev):
@@ -1335,19 +1762,41 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(SEED)
     planner, launches, inputs = run_planner(dev)
+    planner16, launches16 = run_planner_bf16(dev, inputs, planner)
     render = run_render(dev, inputs)
+    render16 = run_render_bf16(dev, inputs)
     train = run_train(dev)
     loop = run_loop(dev, smi, train["times"]["step_ms"][0])
-    args = render["args"]
+    # the float32 train and loop phases launched no bfloat16 kernel (their
+    # counts were last set to 0 before the loop's resumed steps)
+    check(not any(bf16_counts()[0].values()),
+          f"bfloat16 launches in the float32 train loop: {bf16_counts()[0]}")
+    args, args16 = render["args"], render16["args"]
     rows = [check_view_fuse(dev, gen, args["view_fuse"]),
             check_gather(dev, gen, planner, inputs, args["epipolar_gather"]),
             check_gather_backward(dev, gen, planner, inputs, train["args"])]
+    rows16 = [check_view_fuse_bf16(dev, gen, args16["view_fuse"]),
+              check_gather_bf16(dev, gen, planner16, inputs,
+                                args16["epipolar_gather"])]
     phases = phase_times(planner, inputs)
     log("phases (median, min, max of 20) " + json.dumps(phases))
+    phases16 = phase_times(planner16, inputs)
+    log("bf16 phases (median, min, max of 20) " + json.dumps(phases16))
+    log(f"bf16 render phases: {json.dumps(render16['times'])}")
     if "--profile" in sys.argv[1:]:
         profile_call("planning call", planner_stages(planner, inputs))
+        profile_call("bf16 planning call", planner_stages(planner16, inputs))
         profile_call("render", render["stages"])
         profile_call("train step", train["stages"], grad=True)
+    for row in rows16:
+        # `launches`: in the bfloat16 planner's N_CALLS planning calls; per
+        # render and forward of the bfloat16 model; the float32 train step
+        # and loop launch none
+        name = row["name"]
+        row["launches"] = launches16[name]
+        row["render_launches"] = render16["launches"]["render"][name]
+        row["forward_launches"] = render16["launches"]["forward"][name]
+        row["train_launches"] = row["loop_launches"] = 0
     for row in rows:
         # `launches`: the row's main path, the planner for the forward
         # kernels, the train steps for the backward
@@ -1364,6 +1813,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "render_launches", "train_launches", "loop_launches")
+    rows += rows16
     for row in rows:
         check(all(k in row for k in keys), f"{row['name']}: a key is missing")
     log(json.dumps({"kernels": [

@@ -2,9 +2,9 @@
 arguments: a copy of graspnerf_tpu/config.py:17-63, since importing that
 module imports the JAX package.
 
-The port computes in float32 and has no Pallas switch (its kernels are
-chosen by `use_kernels`), so `compute_dtype` other than float32 is refused
-and `use_pallas` is not mapped.
+`compute_dtype` maps as in JAX (graspnerf_tpu/config.py:39); the renderer
+takes float32 or bfloat16. The port has no Pallas switch (its kernels are
+chosen by `use_kernels`), so `use_pallas` is not mapped.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ _RENDERER_KEYS = {
     "use_ray_mask": "use_ray_mask",
     "ray_mask_view_num": "ray_mask_view_num",
     "ray_mask_point_num": "ray_mask_point_num",
+    "compute_dtype": "compute_dtype",
 }
 
 
@@ -34,9 +35,6 @@ def load_cfg(path: str) -> Dict[str, Any]:
 
 def renderer_cfg_from(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """Config keys -> `NeuralRayRenderer` keyword arguments."""
-    if cfg.get("compute_dtype", "float32") != "float32":
-        raise ValueError(f"compute_dtype {cfg['compute_dtype']!r}: the port "
-                         "computes in float32 only (ROADMAP Queue 1)")
     out = {dst: cfg[src] for src, dst in _RENDERER_KEYS.items() if src in cfg}
     agg = cfg.get("agg_net_cfg") or {}
     if "init_s" in agg:

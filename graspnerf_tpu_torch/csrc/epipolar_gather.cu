@@ -1,4 +1,5 @@
-// Epipolar feature gather, forward and backward (sm_90a, float32).
+// Epipolar feature gather, forward (sm_90a, float32 and bfloat16) and
+// backward (float32).
 //
 // Forward. Replaces: graspnerf_tpu/ops/fused_gather.py `fused_epipolar_gather`
 // (:232-252) with `pack_feature_maps` (:43-64), whose values equal three
@@ -33,6 +34,11 @@
 // The arithmetic is the plain version's, op for op (ops/interpolate.py); the
 // library is built with -fmad=false so no a*b+c is contracted and the result
 // is bit-equal to the plain version.
+// bfloat16 instance (epipolar_gather_forward_bf16): the maps
+// (`pack_feature_maps(dtype)`, fused_gather.py:43-64) are read in bfloat16,
+// exactly widened to float32, weighed and blended as above; both outputs are
+// written rounded to the nearest bfloat16, as the plain version rounds
+// them. Its vector path reads and writes 8 bytes (four channels) at a time.
 //
 // Backward. Replaces: `_feg_bwd` (graspnerf_tpu/ops/fused_gather.py:260-270)
 // with `_splat_windows` (:183-229), the transpose of the forward with respect
@@ -51,6 +57,7 @@
 // the sum order at a map cell varies from run to run. Points that share taps
 // (a z-column of the volume grid; the samples of one ray in the view it was
 // cast from) contend for the same addresses.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -127,34 +134,71 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// The four channels c..c+3 of a map at the point's taps, float4 reads.
-__device__ __forceinline__ float4 sample4(const float* __restrict__ map,
+// Element access for the maps and outputs of both instances: float, or
+// bf16 read exactly into float and written rounded to the nearest.
+using bf16 = __nv_bfloat16;
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+// four consecutive elements, 16 (float) or 8 (bf16) bytes, aligned
+__device__ __forceinline__ float4 load4(const float* p) { return ld4(p); }
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      *reinterpret_cast<unsigned*>(&lo), *reinterpret_cast<unsigned*>(&hi));
+}
+
+// The four channels c..c+3 of a map at the point's taps, vector reads.
+template <typename T>
+__device__ __forceinline__ float4 sample4(const T* __restrict__ map,
                                           const Point& q, int c) {
-  const float* t = map + q.o00 + c;
-  const float4 a = ld4(t), b = ld4(t + q.dx), d = ld4(t + q.dy),
-               e = ld4(t + q.dy + q.dx);
+  const T* t = map + q.o00 + c;
+  const float4 a = load4(t), b = load4(t + q.dx), d = load4(t + q.dy),
+               e = load4(t + q.dy + q.dx);
   return make_float4(blend(a.x, b.x, d.x, e.x, q), blend(a.y, b.y, d.y, e.y, q),
                      blend(a.z, b.z, d.z, e.z, q), blend(a.w, b.w, d.w, e.w, q));
 }
 
-__device__ __forceinline__ float sample1(const float* __restrict__ map,
+template <typename T>
+__device__ __forceinline__ float sample1(const T* __restrict__ map,
                                          const Point& q, int c) {
-  const float* t = map + q.o00 + c;
-  return blend(__ldg(t), __ldg(t + q.dx), __ldg(t + q.dy),
-               __ldg(t + q.dy + q.dx), q);
+  const T* t = map + q.o00 + c;
+  return blend(to_f(__ldg(t)), to_f(__ldg(t + q.dx)), to_f(__ldg(t + q.dy)),
+               to_f(__ldg(t + q.dy + q.dx)), q);
 }
 
-template <bool kVec>
+// T: float, or bf16 for the bfloat16 instance (maps and outputs in it; the
+// coordinates, taps, weights and blends float32 all the same)
+template <bool kVec, typename T>
 __global__ void __launch_bounds__(kThreads)
-gather_kernel(const float* __restrict__ imgs,
-              const float* __restrict__ img_feats,
-              const float* __restrict__ ray_feats,
+gather_kernel(const T* __restrict__ imgs,
+              const T* __restrict__ img_feats,
+              const T* __restrict__ ray_feats,
               const float* __restrict__ xy,
               const unsigned char* __restrict__ valid,
-              float* __restrict__ rgb_out, float* __restrict__ ray_out,
+              T* __restrict__ rgb_out, T* __restrict__ ray_out,
               int P, int H, int W, int fh, int fw, int C) {
+  constexpr int E = 16 / sizeof(T);   // elements per 16 bytes
   __shared__ Point pts[kPoints], rgbs[kPoints];
-  __shared__ __align__(16) float stage[kPoints * kMaxRow + 4];
+  __shared__ __align__(16) T stage[kPoints * kMaxRow + E];
   const int R = 3 + C;
   const int p0 = blockIdx.x * kPoints;
   const int n = min(kPoints, P - p0);
@@ -169,9 +213,10 @@ gather_kernel(const float* __restrict__ imgs,
     rgb_out += vp * R;
     ray_out += vp * C;
   }
-  float* dst = rgb_out + p0 * R;   // the block's rows, n * R floats
+  T* dst = rgb_out + p0 * R;   // the block's rows, n * R elements
   // the stage holds dst[k] at stage[a + k]: the same offset from 16 bytes
-  const int a = static_cast<int>(reinterpret_cast<uintptr_t>(dst) / 4 % 4);
+  const int a =
+      static_cast<int>(reinterpret_cast<uintptr_t>(dst) / sizeof(T) % E);
   const int t = threadIdx.x;
 
   // 1. per point, once: the taps of both maps
@@ -179,8 +224,9 @@ gather_kernel(const float* __restrict__ imgs,
   __syncthreads();
 
   // 2. kLanes lanes per point. RGB: a tap pair (x0, x1) of one image row
-  //    is 6 floats, so lanes 0-5 read rows y0 and y1 and lane c < 3 blends
-  //    channel c with lane c+3's values. Maps: four channels per lane.
+  //    is 6 elements, so lanes 0-5 read rows y0 and y1 and lane c < 3
+  //    blends channel c with lane c+3's values. Maps: four channels per
+  //    lane.
   const int l = t % kLanes, c = 4 * l;
 #pragma unroll
   for (int k = 0; k < kPoints * kLanes / kThreads; ++k) {
@@ -191,44 +237,45 @@ gather_kernel(const float* __restrict__ imgs,
     if (live) {
       g = rgbs[i];
       if (l < 6) {
-        const float* px = imgs + g.o00 + l % 3 + l / 3 * g.dx;
-        r0 = __ldg(px);
-        r1 = __ldg(px + g.dy);
+        const T* px = imgs + g.o00 + l % 3 + l / 3 * g.dx;
+        r0 = to_f(__ldg(px));
+        r1 = to_f(__ldg(px + g.dy));
       }
     }
     const float s0 = __shfl_down_sync(0xffffffffu, r0, 3, kLanes);
     const float s1 = __shfl_down_sync(0xffffffffu, r1, 3, kLanes);
     if (!live) continue;
-    float* row = stage + a + i * R;
-    if (l < 3) row[l] = blend(r0, s0, r1, s1, g);
+    T* row = stage + a + i * R;
+    if (l < 3) row[l] = from_f<T>(blend(r0, s0, r1, s1, g));
     if (c >= C) continue;
     const Point q = pts[i];
-    float* ray = ray_out + (p0 + i) * C;
+    T* ray = ray_out + (p0 + i) * C;
     if constexpr (kVec) {
       const float4 f = sample4(img_feats, q, c);
-      row[3 + c] = f.x;
-      row[4 + c] = f.y;
-      row[5 + c] = f.z;
-      row[6 + c] = f.w;
-      *reinterpret_cast<float4*>(ray + c) = sample4(ray_feats, q, c);
+      row[3 + c] = from_f<T>(f.x);
+      row[4 + c] = from_f<T>(f.y);
+      row[5 + c] = from_f<T>(f.z);
+      row[6 + c] = from_f<T>(f.w);
+      store4(ray + c, sample4(ray_feats, q, c));
     } else {
       for (int j = c; j < min(c + 4, C); ++j) {
-        row[3 + j] = sample1(img_feats, q, j);
-        ray[j] = sample1(ray_feats, q, j);
+        row[3 + j] = from_f<T>(sample1(img_feats, q, j));
+        ray[j] = from_f<T>(sample1(ray_feats, q, j));
       }
     }
   }
   __syncthreads();
 
-  // 3. the staged rows out: stage[4s..4s+3] is dst[4s-a..4s-a+3], 16-byte
-  //    aligned; the slab's partial first and last float4 go float by float
+  // 3. the staged rows out: stage[Es..Es+E-1] is dst[Es-a..], 16-byte
+  //    aligned; the slab's partial first and last chunk go element by
+  //    element
   const int end = a + n * R;
-  for (int s = 4 * t; s < end; s += 4 * kThreads) {
-    if (s >= a && s + 4 <= end) {
-      *reinterpret_cast<float4*>(dst + s - a) =
-          *reinterpret_cast<const float4*>(stage + s);
+  for (int s = E * t; s < end; s += E * kThreads) {
+    if (s >= a && s + E <= end) {
+      *reinterpret_cast<uint4*>(dst + s - a) =
+          *reinterpret_cast<const uint4*>(stage + s);
     } else {
-      for (int j = max(s, a); j < min(s + 4, end); ++j) dst[j - a] = stage[j];
+      for (int j = max(s, a); j < min(s + E, end); ++j) dst[j - a] = stage[j];
     }
   }
 }
@@ -327,8 +374,31 @@ gather_backward_kernel(const float* __restrict__ xy,
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+bool aligned16(const void* p) { return aligned(p, 16); }
+
+template <typename T>
+int forward(const T* imgs, const T* img_feats, const T* ray_feats,
+            const float* xy, const unsigned char* valid, T* rgb_out,
+            T* ray_out, int V, int P, int H, int W, int fh, int fw, int C,
+            cudaStream_t stream) {
+  if (V == 0 || P == 0) return 0;
+  const dim3 grid((P + kPoints - 1) / kPoints, V);
+  // vector reads and stores of four channels
+  const size_t v4 = 4 * sizeof(T);
+  const bool vec = C % 4 == 0 && aligned(img_feats, v4) &&
+                   aligned(ray_feats, v4) && aligned(ray_out, v4);
+  if (vec)
+    gather_kernel<true, T><<<grid, kThreads, 0, stream>>>(
+        imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out, P, H, W, fh,
+        fw, C);
+  else
+    gather_kernel<false, T><<<grid, kThreads, 0, stream>>>(
+        imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out, P, H, W, fh,
+        fw, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -342,19 +412,19 @@ extern "C" int epipolar_gather_forward(
     const float* xy, const unsigned char* valid, float* rgb_out,
     float* ray_out, int V, int P, int H, int W, int fh, int fw, int C,
     cudaStream_t stream) {
-  if (V == 0 || P == 0) return 0;
-  const dim3 grid((P + kPoints - 1) / kPoints, V);
-  const bool vec = C % 4 == 0 && aligned16(img_feats) &&
-                   aligned16(ray_feats) && aligned16(ray_out);
-  if (vec)
-    gather_kernel<true><<<grid, kThreads, 0, stream>>>(
-        imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out, P, H, W, fh,
-        fw, C);
-  else
-    gather_kernel<false><<<grid, kThreads, 0, stream>>>(
-        imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out, P, H, W, fh,
-        fw, C);
-  return static_cast<int>(cudaGetLastError());
+  return forward(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out, V,
+                 P, H, W, fh, fw, C, stream);
+}
+
+// The bfloat16 instance: bfloat16 maps and outputs (rounded to the nearest
+// from the float32 blend), the same coordinates and limits.
+extern "C" int epipolar_gather_forward_bf16(
+    const bf16* imgs, const bf16* img_feats, const bf16* ray_feats,
+    const float* xy, const unsigned char* valid, bf16* rgb_out,
+    bf16* ray_out, int V, int P, int H, int W, int fh, int fw, int C,
+    cudaStream_t stream) {
+  return forward(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out, V,
+                 P, H, W, fh, fw, C, stream);
 }
 
 // The transpose of epipolar_gather_forward with respect to the maps: adds

@@ -1,7 +1,9 @@
 """NeuS aggregation head (graspnerf_tpu/models/aggregator.py:18-123): the
 prob embedding, direction features and IBRNet-NeuS, then the NeuS alpha.
 `forward` is the render path's (sdf, colours, ∇sdf, alpha); `sdf` is the
-SDF-only branch that volume queries take (`que_dists=None` in JAX)."""
+SDF-only branch that volume queries take (`que_dists=None` in JAX).
+The prob embedding computes in `dtype` (aggregator.py:75-110); the alpha
+and ∇sdf's norm are float32."""
 from __future__ import annotations
 
 import torch
@@ -9,6 +11,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .ibrnet import IBRNetNeus
+from .layers import Linear
 
 
 def dir_diff_feature(prj_dir, que_dir):
@@ -57,11 +60,13 @@ class NeusAggregationNet(nn.Module):
     [qn,rn,dn,3]."""
 
     def __init__(self, neuray_dim: int = 32, init_s: float = 0.3,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, dtype=torch.float32):
         super().__init__()
-        self.prob_embed = nn.Sequential(nn.Linear(32 + 2, neuray_dim), nn.ReLU(),
-                                        nn.Linear(neuray_dim, neuray_dim))
-        self.agg_impl = IBRNetNeus(neuray_dim, use_kernels=use_kernels)
+        self.prob_embed = nn.Sequential(
+            Linear(32 + 2, neuray_dim, dtype=dtype), nn.ReLU(),
+            Linear(neuray_dim, neuray_dim, dtype=dtype))
+        self.agg_impl = IBRNetNeus(neuray_dim, use_kernels=use_kernels,
+                                   dtype=dtype)
         self.deviation_network = SingleVariance(init_s)
 
     def fuse_inputs(self, prj, que_dir):

@@ -1,7 +1,9 @@
 """Mixture-of-logistics ray-distribution decoder
 (graspnerf_tpu/models/dist_decoder.py:19-89): the fixed-interval bins of
 volume queries, the per-sample bins of rendered rays, and the means alone
-for the depth loss; use_vis False as in the shipped config."""
+for the depth loss; use_vis False as in the shipped config. The heads'
+Linears compute in `dtype` (dist_decoder.py:44-57); softplus and sigmoid
+take their outputs in float32."""
 from __future__ import annotations
 
 import torch
@@ -9,34 +11,36 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import geometry
+from .layers import Linear
 
 
-def _head(feats_dim: int, out_dim: int) -> nn.Sequential:
-    return nn.Sequential(nn.Linear(feats_dim, feats_dim), nn.ELU(),
-                         nn.Linear(feats_dim, feats_dim), nn.ELU(),
-                         nn.Linear(feats_dim, out_dim))
+def _head(feats_dim: int, out_dim: int, dtype) -> nn.Sequential:
+    return nn.Sequential(Linear(feats_dim, feats_dim, dtype=dtype), nn.ELU(),
+                         Linear(feats_dim, feats_dim, dtype=dtype), nn.ELU(),
+                         Linear(feats_dim, out_dim, dtype=dtype))
 
 
 class MixtureLogisticsDistDecoder(nn.Module):
-    """feats [...,32] -> (mean [...,2], var [...,2], aw [...,1])."""
+    """feats [...,32] -> (mean [...,2], var [...,2], aw [...,1]), float32."""
 
-    def __init__(self, feats_dim: int = 32, bias_val: float = 0.05):
+    def __init__(self, feats_dim: int = 32, bias_val: float = 0.05,
+                 dtype=torch.float32):
         super().__init__()
         self.bias_val = bias_val
-        self.mean_decoder = _head(feats_dim, 2)
-        self.var_decoder = _head(feats_dim, 2)
-        self.aw_decoder = _head(feats_dim, 1)
+        self.mean_decoder = _head(feats_dim, 2, dtype)
+        self.var_decoder = _head(feats_dim, 2, dtype)
+        self.aw_decoder = _head(feats_dim, 1, dtype)
 
     def forward(self, feats):
-        mean = F.softplus(self.mean_decoder(feats))
-        var = F.softplus(self.var_decoder(feats)) + self.bias_val
-        aw = torch.sigmoid(self.aw_decoder(feats))
+        mean = F.softplus(self.mean_decoder(feats).float())
+        var = F.softplus(self.var_decoder(feats).float()) + self.bias_val
+        aw = torch.sigmoid(self.aw_decoder(feats).float())
         return mean, var, aw
 
     def predict_mean(self, feats):
         """The mixture means alone, [...,2] (dist_decoder.py:55-58): the
         depth loss's prediction."""
-        return F.softplus(self.mean_decoder(feats))
+        return F.softplus(self.mean_decoder(feats).float())
 
 
 def compute_prob(depth, mean, var, aw, depth_range, interval=None,

@@ -15,6 +15,12 @@ and the gradient keeps its graph (`create_graph`), so the eikonal term
 reaches the geometry head and the view fuse through the double backward, as
 in JAX; under the callers' `no_grad` it runs in a local `enable_grad` on
 detached features. The volume path calls `geometry` and pays nothing for it.
+
+`dtype`, the compute dtype (ibrnet.py:60-248): every Linear computes in it
+(models/layers.py), and so do the view fuse (as the Pallas kernel does in
+it), the attention and the positional table; LayerNorm takes float32
+statistics; the SDF, its clip, ∇sdf's points and the colour blend's
+softmax stay float32.
 """
 from __future__ import annotations
 
@@ -25,6 +31,9 @@ import torch
 import torch.nn as nn
 
 from ..ops.view_fuse import W_NAMES, view_fuse, view_fuse_plain
+from .layers import Linear
+
+F32 = torch.float32
 
 
 def positional_table(n_samples: int, d_hid: int = 16) -> np.ndarray:
@@ -46,12 +55,12 @@ def embed_points(pts: torch.Tensor, multires: int = 3) -> torch.Tensor:
     return torch.cat(out, -1)
 
 
-def _seq(dims, acts, d_in) -> nn.Sequential:
+def _seq(dims, acts, d_in, dtype=F32) -> nn.Sequential:
     """Linear stack named like the reference's Sequential ("0", "2", ...):
     every Linear is followed by its activation module (or an Identity)."""
     layers = []
     for d, a in zip(dims, acts):
-        layers += [nn.Linear(d_in, d),
+        layers += [Linear(d_in, d, dtype=dtype),
                    {"elu": nn.ELU(), "sigmoid": nn.Sigmoid(),
                     None: nn.Identity()}[a]]
         d_in = d
@@ -60,16 +69,19 @@ def _seq(dims, acts, d_in) -> nn.Sequential:
 
 class MultiHeadAttention(nn.Module):
     """Post-LN multi-head attention along the sample axis. q/k/v [B,L,16];
-    mask [B,L,1] hides *query rows* with -1e9."""
+    mask [B,L,1] hides *query rows* with -1e9. Computes in `dtype`; the
+    LayerNorm's statistics and affine in float32, its result in `dtype`
+    (flax LayerNorm(dtype=...))."""
 
     def __init__(self, n_head: int = 4, d_model: int = 16, d_k: int = 4,
-                 d_v: int = 4):
+                 d_v: int = 4, dtype=F32):
         super().__init__()
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
-        self.w_qs = nn.Linear(d_model, n_head * d_k, bias=False)
-        self.w_ks = nn.Linear(d_model, n_head * d_k, bias=False)
-        self.w_vs = nn.Linear(d_model, n_head * d_v, bias=False)
-        self.fc = nn.Linear(n_head * d_v, d_model, bias=False)
+        self.dtype = dtype
+        self.w_qs = Linear(d_model, n_head * d_k, bias=False, dtype=dtype)
+        self.w_ks = Linear(d_model, n_head * d_k, bias=False, dtype=dtype)
+        self.w_vs = Linear(d_model, n_head * d_v, bias=False, dtype=dtype)
+        self.fc = Linear(n_head * d_v, d_model, bias=False, dtype=dtype)
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-6)
 
     def forward(self, q, k, v, mask=None):
@@ -83,7 +95,7 @@ class MultiHeadAttention(nn.Module):
             attn = attn.masked_fill(mask[:, None, :, :] == 0, -1e9)
         out = torch.matmul(torch.softmax(attn, -1), vh)
         out = out.transpose(1, 2).reshape(B, L, H * self.d_v)
-        return self.layer_norm(self.fc(out) + q)
+        return self.layer_norm((self.fc(out) + q).float()).to(self.dtype)
 
 
 class IBRNetNeus(nn.Module):
@@ -92,20 +104,23 @@ class IBRNetNeus(nn.Module):
     que_pts [Q,R',D,3] with Q*R' = R."""
 
     def __init__(self, neuray_in_dim: int = 32, in_feat_ch: int = 32,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, dtype=F32):
         super().__init__()
         f = in_feat_ch
+        d = self.dtype = dtype
         self.use_kernels = use_kernels
-        self.ray_dir_fc = _seq((16, f + 3), ("elu", "elu"), 4)
-        self.base_fc = _seq((64, 32), ("elu", "elu"), (f + 3) * 5 + neuray_in_dim)
-        self.vis_fc = _seq((32, 33), ("elu", "elu"), 32)
-        self.vis_fc2 = _seq((32, 1), ("elu", "sigmoid"), 32)
-        self.geometry_fc = _seq((64, 16), ("elu", "elu"), 65 + 21)
-        self.ray_attention = MultiHeadAttention()
-        self.rgb_fc = _seq((16, 8, 1), ("elu", "elu", None), 32 + 1 + 4)
-        self.neuray_fc = _seq((8, 1), ("elu", None), neuray_in_dim)
+        self.ray_dir_fc = _seq((16, f + 3), ("elu", "elu"), 4, d)
+        self.base_fc = _seq((64, 32), ("elu", "elu"),
+                            (f + 3) * 5 + neuray_in_dim, d)
+        self.vis_fc = _seq((32, 33), ("elu", "elu"), 32, d)
+        self.vis_fc2 = _seq((32, 1), ("elu", "sigmoid"), 32, d)
+        self.geometry_fc = _seq((64, 16), ("elu", "elu"), 65 + 21, d)
+        self.ray_attention = MultiHeadAttention(dtype=d)
+        self.rgb_fc = _seq((16, 8, 1), ("elu", "elu", None), 32 + 1 + 4, d)
+        self.neuray_fc = _seq((8, 1), ("elu", None), neuray_in_dim, d)
         # two stacked Linears with no activation between
-        self.out_geometry_fc = nn.Sequential(nn.Linear(16, 16), nn.Linear(16, 1))
+        self.out_geometry_fc = nn.Sequential(Linear(16, 16, dtype=d),
+                                             Linear(16, 1, dtype=d))
 
     def fuse_weights(self):
         """(weight, bias) pairs of the view-fuse Linears in W_NAMES order."""
@@ -113,19 +128,26 @@ class IBRNetNeus(nn.Module):
         return [(mods[n].weight, mods[n].bias) for n in W_NAMES]
 
     def view_fuse(self, rgb_feat, neuray_feat, ray_diff, mask):
-        """-> (feat_const [N,65], num_valid [N,1], x [V,N,32], vis [V,N,1])."""
+        """-> (feat_const [N,65], num_valid [N,1], x [V,N,32], vis [V,N,1]),
+        num_valid float32, the others in `dtype`; the inputs are cast to it
+        (as the Linears cast theirs)."""
         fn = view_fuse if self.use_kernels else view_fuse_plain
-        return fn(rgb_feat, neuray_feat, ray_diff, mask, self.fuse_weights())
+        ins = (t.to(self.dtype) for t in (rgb_feat, neuray_feat, ray_diff,
+                                          mask))
+        return fn(*ins, self.fuse_weights(), self.dtype)
 
     def geometry(self, feat_const, pts, num_valid):
-        """SDF [R,D,1] from the fused features and the point embedding;
-        feat_const [R,D,65], num_valid [R,D,1], pts [Q,R',D,3]."""
+        """SDF [R,D,1], float32, from the fused features and the point
+        embedding; feat_const [R,D,65], num_valid [R,D,1], pts [Q,R',D,3]."""
         R, D, _ = feat_const.shape
-        pos_enc = torch.from_numpy(positional_table(D)).to(feat_const.device)
-        g = torch.cat([feat_const, embed_points(pts).reshape(R, D, -1)], -1)
+        d = self.dtype
+        pos_enc = torch.from_numpy(positional_table(D)).to(feat_const.device,
+                                                           d)
+        g = torch.cat([feat_const.to(d),
+                       embed_points(pts).reshape(R, D, -1).to(d)], -1)
         g = self.geometry_fc(g) + pos_enc
         g = self.ray_attention(g, g, g, mask=(num_valid > 1).to(g.dtype))
-        sdf = torch.clamp(self.out_geometry_fc(g), -1.0, 1.0)
+        sdf = torch.clamp(self.out_geometry_fc(g).float(), -1.0, 1.0)
         return torch.where(num_valid < 1, torch.ones_like(sdf), sdf)
 
     def geometry_and_grad(self, feat_const, pts, num_valid):
@@ -147,14 +169,14 @@ class IBRNetNeus(nn.Module):
         return sdf.detach(), grad
 
     def blend(self, rgb_in, x, vis, ray_diff, mask):
-        """Softmax colour blend over views -> [N,3]."""
+        """Softmax colour blend over views, in float32 -> [N,3]."""
         h = self.rgb_fc(torch.cat([x, vis, ray_diff], -1))
         h = h.masked_fill(mask == 0, -1e9)
-        return torch.sum(rgb_in * torch.softmax(h, 0), 0)
+        return torch.sum(rgb_in.float() * torch.softmax(h.float(), 0), 0)
 
     def forward(self, rgb_feat, neuray_feat, ray_diff, mask, que_pts,
                 rd: Tuple[int, int]):
-        """-> (rgb [R,D,3], sdf [R,D,1], ∇sdf [Q,R',D,3])."""
+        """-> (rgb [R,D,3], sdf [R,D,1], ∇sdf [Q,R',D,3]), float32."""
         R, D = rd
         feat_const, num_valid, x, vis = self.view_fuse(
             rgb_feat, neuray_feat, ray_diff, mask)

@@ -15,6 +15,14 @@ Data contract (float32, channels-last): ref = {imgs [V,H,W,3], poses
 que = {coords [qn,rn,2] (x,y), poses [qn,3,4], Ks [qn,3,3], depth_range
 [qn,2], imgs [qn,H,W,3] (optional)}.
 
+`compute_dtype` "bfloat16" runs the model in bfloat16 as the JAX renderer
+does (renderer.py:94-140): parameters float32, every layer in bfloat16
+(models/layers.py), the encoders' outputs cast back to float32, the gather
+on the images and feature maps rounded to bfloat16 once per scene
+(`gather_maps`, as `pack_feature_maps(dtype)` packs them once per call) with
+float32 interpolation; geometry, compositing, the SDF, the depth and the
+grasp head's outputs float32.
+
 Training: `forward(data, train=True, generator=g)` draws the fine samples'
 quantiles at random and, with `use_depth_loss`, the depth loss's pixels,
 in JAX's order (renderer.py:277-289); the eval path is unchanged. Run it
@@ -35,24 +43,26 @@ from ..ops.tsdf import grid_points
 from .aggregator import NeusAggregationNet
 from .dist_decoder import MixtureLogisticsDistDecoder, compute_prob
 from .grasp_head import VGNConvNet
+from .layers import torch_dtype
 from .nn_blocks import ResUNetLight, RayFeatInitNet, VisEncoder
 
 
 def project_to_views(ref: Dict[str, torch.Tensor], que_pts: torch.Tensor,
-                     img_feats: torch.Tensor, ray_feats: torch.Tensor,
-                     use_kernels: bool = True):
-    """Project query points [qn,rn,dn,3] into every view and gather.
-    Returns [V,qn,rn,dn,C] tensors: dir(3), pts(2), depth(1), mask(1),
-    ray_feats(32), rgb_feats(35) = rgb | img_feats (the JAX dict's `rgb` and
-    `img_feats`, already concatenated as the aggregator uses them)."""
+                     maps, use_kernels: bool = True):
+    """Project query points [qn,rn,dn,3] into every view and gather from
+    maps = (imgs [V,H,W,3], img_feats, ray_feats [V,H/4,W/4,32]), all of one
+    dtype (`NeuralRayRenderer.gather_maps`). Returns [V,qn,rn,dn,C]
+    tensors: dir(3), pts(2), depth(1), mask(1), ray_feats(32),
+    rgb_feats(35) = rgb | img_feats (the JAX dict's `rgb` and `img_feats`,
+    already concatenated as the aggregator uses them); the last two in the
+    maps' dtype, the others float32."""
     qn, rn, dn, _ = que_pts.shape
     pts = que_pts.reshape(-1, 3)
     V, h, w, _ = ref["imgs"].shape
     xy, depth, valid = geometry.project_points(pts, ref["poses"], ref["Ks"], h, w)
     xy = xy.contiguous()   # einsum may hand back a permuted layout
     gather = epipolar_gather if use_kernels else epipolar_gather_plain
-    rgb_feats, prj_ray_feats = gather(ref["imgs"], img_feats, ray_feats, xy,
-                                      valid)
+    rgb_feats, prj_ray_feats = gather(*maps, xy, valid)
 
     def r(x):
         return x.reshape(V, qn, rn, dn, -1)
@@ -92,7 +102,7 @@ def resolve_device(device) -> torch.device:
 
 class NeuralRayRenderer(nn.Module):
     """The config mirrors configs/nrvgn_sdf.yaml and the JAX dataclass's
-    fields of the same names."""
+    fields of the same names; compute_dtype "float32" | "bfloat16"."""
 
     def __init__(self, depth_sample_num: int = 40,
                  fine_depth_sample_num: int = 40,
@@ -103,7 +113,7 @@ class NeuralRayRenderer(nn.Module):
                  ray_mask_view_num: int = 2, ray_mask_point_num: int = 8,
                  depth_loss_coords_num: int = 8192,
                  use_depth_loss: bool = True, init_s: float = 0.3,
-                 use_kernels: bool = True):
+                 compute_dtype: str = "float32", use_kernels: bool = True):
         super().__init__()
         self.depth_sample_num = depth_sample_num
         self.fine_depth_sample_num = fine_depth_sample_num
@@ -119,21 +129,31 @@ class NeuralRayRenderer(nn.Module):
         self.depth_loss_coords_num = depth_loss_coords_num
         self.use_depth_loss = use_depth_loss
         self.use_kernels = use_kernels
-        self.image_encoder = ResUNetLight(3, (1, 2, 6, 4), 32, 16)
-        self.init_net = RayFeatInitNet()
-        self.vis_encoder = VisEncoder()
-        self.dist_decoder = MixtureLogisticsDistDecoder()
-        self.agg_net = NeusAggregationNet(init_s=init_s, use_kernels=use_kernels)
+        self.compute_dtype = compute_dtype
+        d = self.dtype = torch_dtype(compute_dtype)
+        self.image_encoder = ResUNetLight(3, (1, 2, 6, 4), 32, 16, d)
+        self.init_net = RayFeatInitNet(d)
+        self.vis_encoder = VisEncoder(d)
+        self.dist_decoder = MixtureLogisticsDistDecoder(dtype=d)
+        self.agg_net = NeusAggregationNet(init_s=init_s,
+                                          use_kernels=use_kernels, dtype=d)
         if use_hierarchical_sampling:
-            self.fine_dist_decoder = MixtureLogisticsDistDecoder()
-            self.fine_agg_net = NeusAggregationNet(init_s=init_s,
-                                                   use_kernels=use_kernels)
+            self.fine_dist_decoder = MixtureLogisticsDistDecoder(dtype=d)
+            self.fine_agg_net = NeusAggregationNet(
+                init_s=init_s, use_kernels=use_kernels, dtype=d)
 
     def encode_views(self, imgs: torch.Tensor):
-        """imgs [V,H,W,3] -> (img_feats, ray_feats), each [V,H/4,W/4,32]."""
+        """imgs [V,H,W,3] -> (img_feats, ray_feats), each [V,H/4,W/4,32],
+        float32 whatever the compute dtype (renderer.py:133-140)."""
         img_feats = self.image_encoder(imgs).contiguous()
         ray_feats = self.vis_encoder(self.init_net(imgs), img_feats)
-        return img_feats, ray_feats.contiguous()
+        return img_feats.float(), ray_feats.contiguous().float()
+
+    def gather_maps(self, imgs, img_feats, ray_feats):
+        """The gather's maps, once per scene: the images and feature maps
+        in the compute dtype (pack_feature_maps(dtype), fused_gather.py:
+        43-64); unchanged in float32."""
+        return tuple(t.to(self.dtype) for t in (imgs, img_feats, ray_feats))
 
     def _predict_ray_prob(self, decoder, prj, ref_depth_range, que_dists_inv):
         """Adds the mask-gated `vis` and `hit_prob` to prj; que_dists_inv
@@ -148,17 +168,19 @@ class NeuralRayRenderer(nn.Module):
         return prj
 
     def render_by_depth(self, que_depth, que, ref, img_feats, ray_feats,
-                        is_fine: bool):
+                        is_fine: bool, maps=None):
         """One render pass at the depths que_depth [qn,rn,dn]
-        (renderer.py:161-197)."""
+        (renderer.py:161-197); maps: `gather_maps`' result, made here when
+        None."""
         dist_decoder = self.fine_dist_decoder if is_fine else self.dist_decoder
         agg_net = self.fine_agg_net if is_fine else self.agg_net
 
         que_dists_inv = geometry.depth2inv_dists(que_depth, que["depth_range"])
         que_pts, que_dir = geometry.depth2points(
             que["coords"], que["poses"], que["Ks"], que_depth)
-        prj = project_to_views(ref, que_pts, img_feats, ray_feats,
-                               self.use_kernels)
+        if maps is None:
+            maps = self.gather_maps(ref["imgs"], img_feats, ray_feats)
+        prj = project_to_views(ref, que_pts, maps, self.use_kernels)
         prj = self._predict_ray_prob(dist_decoder, prj, ref["depth_range"],
                                      que_dists_inv)
         agg = agg_net(prj, que_dir, que_pts, geometry.depth2dists(que_depth))
@@ -179,34 +201,41 @@ class NeuralRayRenderer(nn.Module):
             out["render_depth"] = torch.sum(hit_prob * que_depth, -1)
         return out
 
-    def render_rays(self, que, ref, img_feats, ray_feats, generator=None):
+    def render_rays(self, que, ref, img_feats, ray_feats, generator=None,
+                    maps=None):
         """Coarse pass, then fine samples from its hit probabilities (no
         gradient flows into them) and a second pass under the `_fine` keys
         (renderer.py:199-216). With a generator the fine quantiles are drawn
-        at random; the coarse samples stay deterministic, as in JAX."""
+        at random; the coarse samples stay deterministic, as in JAX. maps:
+        `gather_maps`' result, made here when None."""
         _, rn, _ = que["coords"].shape
+        if maps is None:
+            maps = self.gather_maps(ref["imgs"], img_feats, ray_feats)
         que_depth = geometry.sample_depth(que["depth_range"], rn,
                                           self.depth_sample_num)
         out = self.render_by_depth(que_depth, que, ref, img_feats, ray_feats,
-                                   False)
+                                   False, maps)
         if self.use_hierarchical_sampling:
             fine_depth = geometry.sample_fine_depth(
                 que_depth, out["hit_prob_nr"].detach(), que["depth_range"],
                 self.fine_depth_sample_num, generator)
             fine_depth = torch.sort(fine_depth, -1).values
             fine = self.render_by_depth(fine_depth, que, ref, img_feats,
-                                        ray_feats, True)
+                                        ray_feats, True, maps)
             out.update({k + "_fine": v for k, v in fine.items()})
         return out
 
-    def sample_volume(self, ref, img_feats, ray_feats) -> torch.Tensor:
-        """SDF on the res^3 workspace grid -> [res,res,res] (x,y,z order).
-        The grid is 1 x res^2 "rays" of res samples, so the ray attention runs
-        along each z-column, sampled top-down (z flipped in and back out)."""
+    def sample_volume(self, ref, img_feats, ray_feats,
+                      maps=None) -> torch.Tensor:
+        """SDF on the res^3 workspace grid -> [res,res,res] (x,y,z order),
+        float32. The grid is 1 x res^2 "rays" of res samples, so the ray
+        attention runs along each z-column, sampled top-down (z flipped in
+        and back out). maps: `gather_maps`' result, made here when None."""
         res = self.volume_resolution
         que_pts = volume_query_points(res, self.volume_size, ref["bbox3d_min"])
-        prj = project_to_views(ref, que_pts, img_feats, ray_feats,
-                               self.use_kernels)
+        if maps is None:
+            maps = self.gather_maps(ref["imgs"], img_feats, ray_feats)
+        prj = project_to_views(ref, que_pts, maps, self.use_kernels)
         prj = self._predict_ray_prob(self.dist_decoder, prj,
                                      ref["depth_range"], None)
         que_dir = que_pts.new_tensor([0.0, 0.0, 1.0]).expand_as(que_pts)
@@ -249,12 +278,14 @@ class NeuralRayRenderer(nn.Module):
         its key."""
         ref, que = data["ref"], data.get("que")
         img_feats, ray_feats = self.encode_views(ref["imgs"])
+        maps = self.gather_maps(ref["imgs"], img_feats, ray_feats)
         out = {}
         if self.render_rgb and que is not None:
             out = self.render_rays(que, ref, img_feats, ray_feats,
-                                   generator if train else None)
+                                   generator if train else None, maps)
         if self.do_sample_volume:
-            out["volume"] = self.sample_volume(ref, img_feats, ray_feats)
+            out["volume"] = self.sample_volume(ref, img_feats, ray_feats,
+                                               maps)
         if self.use_depth_loss and generator is not None:
             out.update(self.predict_mean_for_depth_loss(ref, ray_feats,
                                                         generator))
@@ -269,7 +300,7 @@ class GraspNeRF(nn.Module):
         super().__init__()
         self.nr_net = NeuralRayRenderer(**(renderer_cfg or {}),
                                         use_kernels=use_kernels)
-        self.vgn_net = VGNConvNet()
+        self.vgn_net = VGNConvNet(self.nr_net.dtype)
 
     def forward(self, data, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -291,9 +322,10 @@ def load_graspnerf(params: Mapping[str, torch.Tensor], device=None,
                    use_kernels: bool = True) -> GraspNeRF:
     """A GraspNeRF in eval mode with `params` (torch keys, e.g. from
     `convert.flax_to_state_dict`) loaded strictly, on `device`: the card
-    when None, raising without one. It computes in float32: on a card this
-    turns TF32 off for matmuls and cuDNN convolutions, a process-wide
-    PyTorch setting. `use_kernels` False runs the kernels' plain versions
+    when None, raising without one. It computes in renderer_cfg's
+    `compute_dtype` (float32 by default; the same state dict serves
+    "bfloat16"); on a card this turns TF32 off for float32 matmuls and cuDNN
+    convolutions, a process-wide PyTorch setting. `use_kernels` False runs the kernels' plain versions
     on the card; it exists to hold the kernels against them. For inference
     run the model under `torch.no_grad()`, as the planner does (the render
     path's ∇sdf takes its own local autograd); with grad enabled its

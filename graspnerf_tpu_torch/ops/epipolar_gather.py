@@ -20,6 +20,15 @@ is not ported (ROADMAP Queue 2): no path needs it, and the wrapper raises if
 xy requires one. On CPU tensors autograd differentiates the plain version,
 which is also the backward's plain version
 (`epipolar_gather_backward_plain`).
+
+bfloat16: with the three maps in bfloat16 (`pack_feature_maps(dtype)`,
+fused_gather.py:43-64) the kernel's bfloat16 instance reads them, weighs
+and blends the taps in float32 as before, and writes both outputs rounded
+to bfloat16: every consumer of the gathered features in the JAX package
+rounds them to bfloat16 before first use (dist_decoder.py:45,
+aggregator.py:95-96, ibrnet.py:212-216). The plain version rounds at the
+same place. Its backward is not ported: on the card the wrapper raises
+when a bfloat16 map requires a gradient.
 """
 from __future__ import annotations
 
@@ -30,16 +39,20 @@ import torch
 from .. import build
 from .interpolate import interpolate_feature_map
 
+F32, BF16 = torch.float32, torch.bfloat16
+
 
 def epipolar_gather_plain(imgs, img_feats, ray_feats, xy, valid):
     """Plain PyTorch version: three border-clamped bilinear fetches.
-    imgs [V,H,W,3], img_feats/ray_feats [V,H/4,W/4,C], xy [V,P,2] full-res
-    pixel coords, valid [V,P] -> (rgb_feats [V,P,3+C], ray_feats [V,P,C])."""
+    imgs [V,H,W,3], img_feats/ray_feats [V,H/4,W/4,C] of one dtype, xy
+    [V,P,2] full-res pixel coords, valid [V,P] -> (rgb_feats [V,P,3+C],
+    ray_feats [V,P,C]) in the maps' dtype, interpolated in float32."""
     h, w = imgs.shape[1], imgs.shape[2]
     rgb = interpolate_feature_map(imgs, xy, valid, h, w)
     img_f = interpolate_feature_map(img_feats, xy, valid, h, w)
     ray_f = interpolate_feature_map(ray_feats, xy, valid, h, w)
-    return torch.cat([rgb, img_f], -1), ray_f
+    dtype = img_feats.dtype
+    return torch.cat([rgb, img_f], -1).to(dtype), ray_f.to(dtype)
 
 
 _lib = None
@@ -51,20 +64,21 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load("epipolar_gather")
-        lib.epipolar_gather_forward.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.epipolar_gather_forward.restype = ctypes.c_int
-        lib.epipolar_gather_backward.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.epipolar_gather_backward.restype = ctypes.c_int
+        for name in ("epipolar_gather_forward", "epipolar_gather_forward_bf16",
+                     "epipolar_gather_backward"):
+            getattr(lib, name).argtypes = (
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            getattr(lib, name).restype = ctypes.c_int
         lib.epipolar_gather_points_per_block.argtypes = []
         lib.epipolar_gather_points_per_block.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out):
-    """Raise on what the kernel does not take."""
+def _check(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out,
+           dtypes=(F32, BF16)):
+    """Raise on what the kernel does not take: maps and outputs of one of
+    `dtypes`, float32 coordinates, a bool mask."""
     V, H, W, c3 = imgs.shape
     Vf, fh, fw, C = img_feats.shape
     P = xy.shape[1] if xy.dim() == 3 else -1
@@ -83,27 +97,32 @@ def _check(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out):
     if max(P * (3 + C), H * W * 3, fh * fw * C) > _I32 or V > 65535:
         raise ValueError("a view's tensors exceed 32-bit indexing, or more "
                          "than 65,535 views")
-    floats = (imgs, img_feats, ray_feats, xy, rgb_out, ray_out)
-    if valid.dtype != torch.bool or any(t.dtype != torch.float32
-                                        for t in floats):
-        raise TypeError("kernel takes float32 tensors and a bool valid")
+    maps = (imgs, img_feats, ray_feats, rgb_out, ray_out)
+    if (valid.dtype != torch.bool or xy.dtype != F32
+            or imgs.dtype not in dtypes
+            or any(t.dtype != imgs.dtype for t in maps)):
+        raise TypeError(f"kernel takes maps and outputs of one dtype of "
+                        f"{dtypes}, float32 xy and a bool valid")
     device = imgs.device
-    for t in (*floats, valid):
+    for t in (*maps, xy, valid):
         if not t.is_contiguous() or t.device != device:
             raise ValueError("kernel takes contiguous tensors on one device")
 
 
 def launcher(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out):
     """Check the CUDA tensors once and return a call that launches the kernel
-    on them, writing rgb_out [V,P,3+C] and ray_out [V,P,C]: the wrapper's
-    launch, and the bare launch that chip_smoke.py and
-    tools/gather_variants.py time. Each call counts one launch."""
+    on them (the float32 or the bfloat16 instance, as the maps' dtype says),
+    writing rgb_out [V,P,3+C] and ray_out [V,P,C]: the wrapper's launch, and
+    the bare launch that chip_smoke.py and tools/gather_variants.py time.
+    Each call counts one launch."""
     _check(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out)
     tensors = (imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out)
     V, H, W, _ = imgs.shape
     _, fh, fw, C = img_feats.shape
     args = [t.data_ptr() for t in tensors] + [V, xy.shape[1], H, W, fh, fw, C]
-    fn = library().epipolar_gather_forward
+    bf16 = imgs.dtype == BF16
+    lib = library()
+    fn = lib.epipolar_gather_forward_bf16 if bf16 else lib.epipolar_gather_forward
     device = xy.device
 
     def launch():
@@ -111,6 +130,7 @@ def launcher(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out):
             status = fn(*args, torch.cuda.current_stream().cuda_stream)
         build.check(status, "epipolar_gather")
         epipolar_gather.launches += 1
+        epipolar_gather.bf16_launches += bf16
         return tensors[5], tensors[6]   # the closure keeps all seven alive
 
     return launch
@@ -119,8 +139,9 @@ def launcher(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out):
 def _launch(imgs, img_feats, ray_feats, xy, valid):
     V, P = xy.shape[:2]
     C = img_feats.shape[3]
-    rgb_out = torch.empty((V, P, 3 + C), dtype=torch.float32, device=xy.device)
-    ray_out = torch.empty((V, P, C), dtype=torch.float32, device=xy.device)
+    out = dict(dtype=img_feats.dtype, device=xy.device)
+    rgb_out = torch.empty((V, P, 3 + C), **out)
+    ray_out = torch.empty((V, P, C), **out)
     return launcher(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out)()
 
 
@@ -131,7 +152,7 @@ def backward_launcher(d_imgs, d_img_feats, d_ray_feats, xy, valid, d_rgb,
     return a call that launches the backward kernel, adding into d_imgs
     [V,H,W,3] (only if write_imgs), d_img_feats and d_ray_feats
     [V,fh,fw,C]. Each call counts one launch of `epipolar_gather_backward`."""
-    _check(d_imgs, d_img_feats, d_ray_feats, xy, valid, d_rgb, d_ray)
+    _check(d_imgs, d_img_feats, d_ray_feats, xy, valid, d_rgb, d_ray, (F32,))
     V, H, W, _ = d_imgs.shape
     _, fh, fw, C = d_img_feats.shape
     args = ([xy.data_ptr(), valid.data_ptr(), d_rgb.data_ptr(),
@@ -213,17 +234,27 @@ class _GatherFn(torch.autograd.Function):
 def epipolar_gather(imgs, img_feats, ray_feats, xy, valid):
     """Gather wrapper: the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors. Same arguments and results as `epipolar_gather_plain`;
-    differentiable with respect to the three maps."""
+    in float32 differentiable with respect to the three maps."""
     if imgs.device.type == "cpu":
         return epipolar_gather_plain(imgs, img_feats, ray_feats, xy, valid)
     if imgs.device.type != "cuda":
         raise ValueError(f"no gather for device {imgs.device}")
-    if xy.requires_grad and torch.is_grad_enabled():
+    grad = torch.is_grad_enabled()
+    if xy.requires_grad and grad:
         raise NotImplementedError(
             "the gather's gradient with respect to xy is not ported: "
             "ROADMAP Queue 2")
+    if imgs.dtype == BF16:
+        if grad and any(t.requires_grad for t in (imgs, img_feats,
+                                                  ray_feats)):
+            raise NotImplementedError(
+                "the gather's bfloat16 backward (the maps' gradients in "
+                "bfloat16) is not ported: ROADMAP Queue 1")
+        return _launch(imgs, img_feats, ray_feats, xy, valid)
     return _GatherFn.apply(imgs, img_feats, ray_feats, xy, valid)
 
 
+# launches of each kernel; of the forward's bfloat16 instance alone
 epipolar_gather.launches = 0
+epipolar_gather.bf16_launches = 0
 epipolar_gather_backward.launches = 0

@@ -41,13 +41,12 @@ CASES = {"random P=64000": ("random", 64000),
          "planner P=64000": ("planner", 64000),
          "random P=163840": ("random", 163840)}
 
-STCS = [["*reinterpret_cast<float4*>(dst + s - a) =\n          "
-         "*reinterpret_cast<const float4*>(stage + s);",
-         "__stcs(reinterpret_cast<float4*>(dst + s - a), "
-         "*reinterpret_cast<const float4*>(stage + s));"],
-        ["*reinterpret_cast<float4*>(ray + c) = sample4(ray_feats, q, c);",
-         "__stcs(reinterpret_cast<float4*>(ray + c), "
-         "sample4(ray_feats, q, c));"]]
+STCS = [["*reinterpret_cast<uint4*>(dst + s - a) =\n          "
+         "*reinterpret_cast<const uint4*>(stage + s);",
+         "__stcs(reinterpret_cast<uint4*>(dst + s - a), "
+         "*reinterpret_cast<const uint4*>(stage + s));"],
+        ["  *reinterpret_cast<float4*>(p) = v;",
+         "  __stcs(reinterpret_cast<float4*>(p), v);"]]
 NO_MAP_READS = ["return __ldg(reinterpret_cast<const float4*>(p));",
                 "return make_float4(p == nullptr, 1.0f, 1.0f, 1.0f);"]
 
@@ -61,17 +60,17 @@ VARIANTS = {
     "scalar_loads": [["const bool vec = C % 4 == 0 &&",
                       "const bool vec = false &&"]],
     "no_output_staging": [   # rgb_feats rows written straight out
-        ["    float* row = stage + a + i * R;", "    float* row = dst + i * R;"],
-        ["for (int s = 4 * t; s < end;", "for (int s = end; s < end;"]],
+        ["    T* row = stage + a + i * R;", "    T* row = dst + i * R;"],
+        ["for (int s = E * t; s < end;", "for (int s = end; s < end;"]],
     "rgb_one_thread_per_point": [   # twelve float reads each, after phase 1
-        ["      if (l < 6) {\n        const float* px",
-         "      if (false) {\n        const float* px"],
-        ["    if (l < 3) row[l] = blend(r0, s0, r1, s1, g);\n", ""],
+        ["      if (l < 6) {\n        const T* px",
+         "      if (false) {\n        const T* px"],
+        ["    if (l < 3) row[l] = from_f<T>(blend(r0, s0, r1, s1, g));\n", ""],
         ["  const int l = t % kLanes, c = 4 * l;\n",
          "  if (t >= kPoints && t - kPoints < n) {\n"
-         "    float* row = stage + a + (t - kPoints) * R;\n"
+         "    T* row = stage + a + (t - kPoints) * R;\n"
          "    for (int c = 0; c < 3; ++c)\n"
-         "      row[c] = sample1(imgs, rgbs[t - kPoints], c);\n"
+         "      row[c] = from_f<T>(sample1(imgs, rgbs[t - kPoints], c));\n"
          "  }\n  const int l = t % kLanes, c = 4 * l;\n"]],
     "taps_l2_only": [["return __ldg(reinterpret_cast<const float4*>(p));",
                       "return __ldcg(reinterpret_cast<const float4*>(p));"]],
@@ -89,7 +88,7 @@ VARIANTS = {
     # probes, wrong on purpose: no feature-map reads; no reads of any map
     "probe_no_map_reads": [NO_MAP_READS],
     "probe_writes_only": [NO_MAP_READS, [
-        "        r0 = __ldg(px);\n        r1 = __ldg(px + g.dy);",
+        "        r0 = to_f(__ldg(px));\n        r1 = to_f(__ldg(px + g.dy));",
         "        r0 = px == nullptr;\n        r1 = 1.0f;"]],
 }
 

@@ -163,8 +163,8 @@ ABLATIONS = {
                        "constexpr int kGfParts = 6, kGfK = 24;"]],
     "no_l2_prefetch": [["    if (tile + gridDim.x < ntiles)\n      prefetch_inputs(",
                         "    if (false)\n      prefetch_inputs("]],
-    "scalar_tile_loads": [["    if (vec) {\n      Inputs in;",
-                           "    if (false) {\n      Inputs in;"]],
+    "scalar_tile_loads": [["    if (vec) {\n      Inputs<In> in;",
+                           "    if (false) {\n      Inputs<In> in;"]],
     "libm_exp": [["return x > 0.0f ? x : __expf(x) - 1.0f;",
                   "return x > 0.0f ? x : expm1f(x);"],
                  ["return __fdividef(1.0f, 1.0f + __expf(-x));",

@@ -53,7 +53,8 @@ def parser() -> argparse.ArgumentParser:
                    help="data worker processes (0 = in this process)")
     p.add_argument("--compute-dtype", default=None,
                    choices=["float32", "bfloat16"],
-                   help="only float32: the port has no bfloat16 path yet")
+                   help="float32 only: the port trains in float32 "
+                        "(bfloat16 runs inference)")
     p.add_argument("--device", default=None,
                    help="torch device; the card by default, 'cpu' for the "
                         "CPU")
@@ -100,14 +101,15 @@ def main(argv=None) -> int:
     from ..config import load_cfg, renderer_cfg_from, trainer_cfg_from
     from ..data import SceneLoader
     from ..models import GraspNeRF, init_parameters_, resolve_device
-    from .trainer import Trainer
+    from .trainer import Trainer, check_trainable
 
     ycfg = load_cfg(args.cfg) if args.cfg else {}
     if args.compute_dtype:
         ycfg["compute_dtype"] = args.compute_dtype
+    rcfg = renderer_cfg_from(ycfg)
     try:
-        rcfg = renderer_cfg_from(ycfg)
-    except ValueError as e:
+        check_trainable(rcfg.get("compute_dtype", "float32"))
+    except NotImplementedError as e:
         p.error(str(e))
     tcfg = trainer_cfg_from(ycfg)
     if args.steps is not None:

@@ -291,7 +291,8 @@ def test_entry_script_refuses_bfloat16(capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["--device", "cpu", "--compute-dtype", "bfloat16"])
     assert e.value.code == 2
-    assert "float32 only" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "float32 only" in err and "bfloat16 train step" in err
 
 
 def export_script():

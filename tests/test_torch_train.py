@@ -306,16 +306,17 @@ def test_predict_mean_matches_jax(rng):
 
 def test_config_from_yaml_matches_jax():
     """The shipped config maps to the same renderer arguments (minus the
-    JAX-only compute_dtype / use_pallas) and learning-rate arguments, and
-    the port's renderer takes them."""
+    JAX-only use_pallas) and learning-rate arguments, and the port's
+    renderer takes them; compute_dtype bfloat16 maps as JAX maps it."""
     cfg = TC.load_cfg(str(REPO / "configs" / "nrvgn_sdf.yaml"))
     want = JC.renderer_cfg_from(cfg)
     assert TC.renderer_cfg_from(cfg) == want
     assert TC.lr_cfg_from(cfg) == JC.trainer_cfg_from(cfg)["lr_cfg"]
     nr = TM.NeuralRayRenderer(**TC.renderer_cfg_from(cfg))
     assert (nr.use_depth_loss, nr.depth_loss_coords_num) == (True, 8192)
-    with pytest.raises(ValueError, match="float32"):
-        TC.renderer_cfg_from(dict(cfg, compute_dtype="bfloat16"))
+    bf16 = dict(cfg, compute_dtype="bfloat16")
+    assert TC.renderer_cfg_from(bf16) == JC.renderer_cfg_from(bf16)
+    assert TC.renderer_cfg_from(bf16)["compute_dtype"] == "bfloat16"
 
 
 # ----------------------------------------------- the training forward
