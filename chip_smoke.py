@@ -2,7 +2,8 @@
 """Chip smoke test of the PyTorch/CUDA port (graspnerf_tpu_torch) on one
 NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
 
-1. builds both CUDA kernels from csrc/ (nvcc, all sources at once);
+1. builds the CUDA kernels from csrc/ (nvcc, all sources at once: the
+   float32 and the bfloat16 view fuse, the gather);
 2. drives the planner (`GraspNeRFPlanner.core`) at full width -- six
    288 x 512 views, a 40^3 volume, every layer at the shipped widths, seeded
    random weights -- for a few planning calls, counts the kernel launches,
@@ -50,7 +51,9 @@ NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
    the kernel model against the plain-version model on the same card (and
    against the float32 kernel model: the volume's gap, the candidates'
    overlap), times the phases; holds each bfloat16 kernel against its plain
-   version at the main path's shapes, and times it.
+   version at the main path's shapes, and times it (the bfloat16 view fuse,
+   csrc/view_fuse_bf16.cu, beside the float32 kernel on the same rows, with
+   its registers, spills, shared memory and resident blocks).
 
 `--profile` adds a torch.profiler breakdown of a planning call, of a
 render and of a train step by stage and by op. It prints a `kernels` JSON
@@ -931,13 +934,34 @@ def fuse_bound_bf16(n):
 
 
 def check_view_fuse_bf16(dev, gen, render_args):
-    """The view fuse's bfloat16 instance against its plain version on the
-    card (num_valid exact, the rest within FUSE_BF16_RTOL of each output's
-    scale), at ragged N, shifted inputs (element loads), N = 64,000, the
-    render pass's N on random and on the bfloat16 render's own inputs; and
-    its times. Returns its `kernels` row."""
+    """The bfloat16 view-fuse kernel (csrc/view_fuse_bf16.cu) against its
+    plain version on the card (num_valid exact, the rest within
+    FUSE_BF16_RTOL of each output's scale), after its weight-pack guard, at
+    ragged N (one that ends a row into a slab among them), shifted inputs
+    (element loads), N = 64,000, the render pass's N on random and on the
+    bfloat16 render's own inputs; its times beside the float32 kernel's on
+    the same rows, each as a share of its bound; its registers, spills,
+    shared memory and resident blocks. Returns its `kernels` row."""
+    from graspnerf_tpu_torch.ops import view_fuse as vf
     from graspnerf_tpu_torch.ops.view_fuse import view_fuse, view_fuse_plain
     weights = fuse_weights(gen, dev)
+
+    lib = vf.library(BF16)
+    n_pack = vf.pack_weights_bf16(weights).numel()
+    vf.check_pack(lib, n_pack, BF16)
+    try:
+        vf.check_pack(lib, n_pack + 8, BF16)
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, "view_fuse_bf16: a weight pack of the wrong size was taken")
+    slab = lib.view_fuse_bf16_slab_rows()
+    info = vf.kernel_info()
+    check(info["blocks_per_sm"] >= 1,
+          f"view_fuse_bf16: no block fits on an SM: {info}")
+    log(f"view_fuse_bf16: the kernel reads a {lib.view_fuse_bf16_pack_elems()}"
+        f"-element pack = pack_weights_bf16's {n_pack}; {n_pack + 8} is "
+        f"refused; slabs of {slab} rows; " + json.dumps(info))
 
     def compare(name, ins, w):
         got = view_fuse(*ins, w, BF16)
@@ -960,7 +984,7 @@ def check_view_fuse_bf16(dev, gen, render_args):
         return err
 
     errs = {}
-    for n in (1, 31, 33, 1000, RES ** 3, "1000 shifted"):
+    for n in (1, 31, 33, 1000, RES ** 3, RES ** 3 + 17, "1000 shifted"):
         ins = fuse_inputs(gen, 1000 if n == "1000 shifted" else n, dev)
         ins = [t.to(BF16) for t in ins]
         if n == "1000 shifted":   # one element off 16 bytes: element loads
@@ -977,23 +1001,45 @@ def check_view_fuse_bf16(dev, gen, render_args):
             ins, w = render_args[:4], render_args[4]
         else:
             ins, w = [t.to(BF16) for t in fuse_inputs(gen, n, dev)], weights
-        times[n] = {"ms": cuda_time(lambda: view_fuse(*ins, w, BF16)),
-                    "plain_ms": cuda_time(
-                        lambda: view_fuse_plain(*ins, w, BF16)),
-                    **fuse_bound_bf16(ins[0].shape[1])}
-        log(f"view_fuse_bf16 {n if n == render else f'random N={n}'}: "
-            + json.dumps(times[n]))
-        del ins
+        # the float32 kernel on the same rows, in turns with it: the bare
+        # launches (into the outputs of one wrapper call), then the wrappers
+        ins32 = [t.float() for t in ins]
+        bare16 = vf.launcher(*ins, w, view_fuse(*ins, w, BF16), BF16)
+        bare32 = vf.launcher(*ins32, w, view_fuse(*ins32, w))
+        ms = [cuda_time(bare16), cuda_time(bare32), cuda_time(bare32),
+              cuda_time(bare16)]
+        n_rows = ins[0].shape[1]
+        t = {"ms": cuda_time(lambda: view_fuse(*ins, w, BF16)),
+             "kernel_ms": (ms[0] + ms[3]) / 2,
+             "plain_ms": cuda_time(lambda: view_fuse_plain(*ins, w, BF16)),
+             **fuse_bound_bf16(n_rows),
+             "f32_ms": cuda_time(lambda: view_fuse(*ins32, w)),
+             "f32_kernel_ms": (ms[1] + ms[2]) / 2,
+             "f32_bound_ms": fuse_bound(n_rows)["bound_ms"]}
+        t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
+        t["f32_bound_share"] = t["f32_bound_ms"] / t["f32_kernel_ms"]
+        t["of_f32"] = t["kernel_ms"] / t["f32_kernel_ms"]
+        times[n] = t
+        log(f"view_fuse_bf16 {n if n == render else f'random N={n}'} (ms: "
+            f"the wrapper, kernel_ms: the bare launch; bf16 vs the float32 "
+            f"kernel on the same rows, CUDA events, bare turns b-f-f-b "
+            f"{[round(m, 4) for m in ms]}): " + json.dumps(t))
+        del ins, ins32, bare16, bare32
     return {"name": "view_fuse_bf16", "route": "cuda",
-            "source": "graspnerf_tpu_torch/csrc/view_fuse.cu",
+            "source": "graspnerf_tpu_torch/csrc/view_fuse_bf16.cu",
             "replaces": "graspnerf_tpu/ops/pallas/ibrnet_fuse.py:115",
             "max_abs_err": errs[RES ** 3], "library_ms": None,
             **times[RES ** 3], "ms_163840": times[RENDER_ROWS]["ms"],
             "plain_ms_163840": times[RENDER_ROWS]["plain_ms"],
             "bound_ms_163840": times[RENDER_ROWS]["bound_ms"],
+            "kernel_ms_163840": times[RENDER_ROWS]["kernel_ms"],
+            "f32_kernel_ms_163840": times[RENDER_ROWS]["f32_kernel_ms"],
+            "of_f32_163840": times[RENDER_ROWS]["of_f32"],
             "render_ms": times[render]["ms"],
+            "render_kernel_ms": times[render]["kernel_ms"],
             "render_plain_ms": times[render]["plain_ms"],
-            "render_max_abs_err": errs[render]}
+            "render_f32_kernel_ms": times[render]["f32_kernel_ms"],
+            "render_max_abs_err": errs[render], **info}
 
 
 def bf16_ulp(t):

@@ -24,7 +24,7 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # Per-source flags. The gather reproduces the plain version's rounding op by
 # op, so it must not contract a*b+c into FMAs.
 EXTRA_FLAGS = {"epipolar_gather": ["-fmad=false"]}
-KERNELS = ("view_fuse", "epipolar_gather")
+KERNELS = ("view_fuse", "view_fuse_bf16", "epipolar_gather")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -1,4 +1,4 @@
-// IBRNet-NeuS view fuse, forward (sm_90a), float32 and bfloat16.
+// IBRNet-NeuS view fuse, forward (sm_90a, float32).
 //
 // Replaces: graspnerf_tpu/ops/pallas/ibrnet_fuse.py `_kernel` (:115-184),
 // launched by `_view_fuse_pallas` (:187-228) inside `view_fuse` (:231-253).
@@ -36,24 +36,7 @@
 // layers run at 27-57 % of the peak FMA rate; 13 barriers per tile, each
 // phase costing ~1k cycles however small its work; the tile load (10 %).
 // ELU is exp(x) - 1 and sigmoid 1 / (1 + exp(-x)) on the hardware exp.
-//
-// bfloat16 (view_fuse_forward_bf16): the Pallas kernel's dtype=bfloat16
-// instance (`_kernel` :132-136, `_view_fuse_pallas` :190-192, :221-227).
-// The four inputs are read as bfloat16 and x, vis and feat_const written
-// rounded to it (num_valid stays float32). The pack holds the weights
-// rounded to bfloat16 (as float32 values) and the biases in float32. Every
-// layer product takes bfloat16-rounded activations: an output that only
-// feeds the next layer is rounded as it is stored (kRndOut), rf after the
-// gf pass has read it in float32, gf as it is stored, and the products of
-// x with the per-column weight and visibility as they are read (kRndIn).
-// Products of two bfloat16 values are exact in float32, so the float32 FMAs
-// compute the Pallas kernel's bfloat16 matmul with float32 accumulation up
-// to summation order. Bias, ELU, sigmoid, the residuals, the sums over
-// views, mean and variance stay float32, as there.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -105,54 +88,6 @@ static_assert(C_GF * T <= C_X * MP && T * C_OUT <= 64 * MP,
 
 enum { kNone, kElu, kSigm, kEluSigm };    // activation; kEluSigm = sigm(elu)
 enum { kDstNone, kDstInit, kDstRes };     // out added before / after it
-// bfloat16 rounding of a product's operands (flags): each activation (times
-// pre[m] first, which the epilogue then skips) as it is read; the epilogue's
-// result as it is stored
-enum { kRndIn = 1, kRndOut = 2 };
-
-using bf16 = __nv_bfloat16;
-
-// x rounded to the nearest bfloat16, as a float
-__device__ __forceinline__ float rnd(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(bf16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-// a 16-byte chunk of 4 floats or 8 bfloat16 (the lower half first) as floats
-template <typename In>
-__device__ __forceinline__ void widen(uint4 u, float* f);
-template <>
-__device__ __forceinline__ void widen<float>(uint4 u, float* f) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-template <>
-__device__ __forceinline__ void widen<bf16>(uint4 u, float* f) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    f[2 * j] = __uint_as_float(w[j] << 16);
-    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-  }
-}
-// four consecutive outputs, 16 (float) or 8 (bfloat16) bytes, aligned
-__device__ __forceinline__ void put4(float* p, float a, float b, float c,
-                                     float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void put4(bf16* p, float a, float b, float c,
-                                     float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  *reinterpret_cast<uint2*>(p) = make_uint2(
-      *reinterpret_cast<unsigned*>(&lo), *reinterpret_cast<unsigned*>(&hi));
-}
 
 // The hardware exponential (ex2.approx, a few ulp): ELU's exp(x) - 1 then
 // errs by ~1e-7 absolute, far inside the kernel's 1e-4 tolerance, at a
@@ -199,12 +134,10 @@ __host__ __device__ constexpr Shape tile_shape(int O, int MC) {
 // block. A is [I][lda], out [O][ldo] (shared memory, float4 aligned), W
 // I rows of LDW floats from the pack. Epilogue, in this order: times
 // pre[m], plus bias[o], plus out[o][m] (kDstInit), activation, times
-// post[m], plus out[o][m] (kDstRes); null pointers skip their step. RND:
-// kRndIn rounds each A[i][m] (times pre[m]) to bfloat16 as it is read,
-// kRndOut the epilogue's result. Warp tiles are dealt out from warp `rot`
-// on, so that independent calls can share a phase.
-template <int I, int O, int MC, int ACT, int DST, int LDW = pad4(O),
-          int RND = 0>
+// post[m], plus out[o][m] (kDstRes); null pointers skip their step. Warp
+// tiles are dealt out from warp `rot` on, so that independent calls can
+// share a phase.
+template <int I, int O, int MC, int ACT, int DST, int LDW = pad4(O)>
 __device__ __forceinline__ void tile_linear(
     const float* __restrict__ A, int lda, const float* __restrict__ W,
     const float* bias, float* out, int ldo, const float* pre,
@@ -223,17 +156,10 @@ __device__ __forceinline__ void tile_linear(
     const float* a = A + 4 * mq;
     const float* w = W + RO * oq;
     float acc[4][RO] = {};
-    // pre[m] before the products only when they round with it
-    float p[4] = {1.0f, 1.0f, 1.0f, 1.0f}, q[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-    if ((RND & kRndIn) && pre) unpack(ld4(pre + 4 * mq), p);
 #pragma unroll 8
     for (int i = 0; i < I; ++i) {
       float ar[4], wr[RO];
       unpack(ld4(a + i * lda), ar);
-      if (RND & kRndIn) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ar[j] = rnd(ar[j] * p[j]);
-      }
       if (RO == 1) {
         wr[0] = w[i * LDW];
       } else {
@@ -245,7 +171,8 @@ __device__ __forceinline__ void tile_linear(
 #pragma unroll
         for (int k = 0; k < RO; ++k) acc[j][k] = fmaf(ar[j], wr[k], acc[j][k]);
     }
-    if (!(RND & kRndIn) && pre) unpack(ld4(pre + 4 * mq), p);
+    float p[4] = {1.0f, 1.0f, 1.0f, 1.0f}, q[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+    if (pre) unpack(ld4(pre + 4 * mq), p);
     if (post) unpack(ld4(post + 4 * mq), q);
 #pragma unroll
     for (int k = 0; k < RO; ++k) {
@@ -259,7 +186,7 @@ __device__ __forceinline__ void tile_linear(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float s = acc[j][k];
-        if (pre && !(RND & kRndIn)) s *= p[j];
+        if (pre) s *= p[j];
         s += b;
         if (DST == kDstInit) s += d[j];
         if (ACT == kElu) s = elu(s);
@@ -267,7 +194,7 @@ __device__ __forceinline__ void tile_linear(
         if (ACT == kEluSigm) s = sigm(elu(s));
         if (post) s *= q[j];
         if (DST == kDstRes) s += d[j];
-        y[j] = RND & kRndOut ? rnd(s) : s;
+        y[j] = s;
       }
       *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
     }
@@ -275,53 +202,50 @@ __device__ __forceinline__ void tile_linear(
 }
 
 // Layer L of the pack over all M row-views, [C][MP] in and out
-template <int L, int ACT, int DST = kDstNone, int RND = 0>
+template <int L, int ACT, int DST = kDstNone>
 __device__ __forceinline__ void layer(const float* sW, const float* A,
                                       float* out, const float* pre,
                                       const float* post, int rot = 0) {
-  tile_linear<layer_in(L), layer_out(L), M, ACT, DST, pad4(layer_out(L)),
-              RND>(A, MP, sW + w_off(L), sW + b_off(L), out, MP, pre, post,
-                   rot);
+  tile_linear<layer_in(L), layer_out(L), M, ACT, DST>(
+      A, MP, sW + w_off(L), sW + b_off(L), out, MP, pre, post, rot);
 }
 
-// Tile I/O of a [V,N,C] input of element type In (float or bfloat16):
-// rows n0..n0+T-1 of every view are one contiguous block of Q = T*C/E
-// 16-byte chunks of E elements. fetch() reads this thread's chunks of them
-// (consecutive threads, consecutive chunks; zero past N; K per thread, all
-// in flight at once), scatter() writes them as floats channel-major,
-// dst[c][v*T + r]. Needs 16-byte aligned inputs and N % E == 0, so that
-// every block and the live part of the last one are whole, aligned chunks.
-template <int C, typename In>
+// Tile I/O of a [V,N,C] input: rows n0..n0+T-1 of every view are one
+// contiguous block of Q = T*C/4 float4s. fetch() reads this thread's
+// float4s of them (consecutive threads, consecutive float4s; zero past N;
+// K per thread, all in flight at once), scatter() writes them
+// channel-major, dst[c][v*T + r]. Needs 16-byte aligned inputs and
+// N % 4 == 0, so that every block and the live part of the last one are
+// whole, aligned float4s.
+template <int C>
 struct TileIn {
-  static constexpr int E = 16 / sizeof(In);
-  static constexpr int Q = T * C / E;
+  static constexpr int Q = T * C / 4;
   static constexpr int K = (V * Q + kThreads - 1) / kThreads;
-  static_assert(T * C % E == 0, "a view's rows in a tile fill 16-byte chunks");
-  uint4 buf[K];
+  float4 buf[K];
 
-  __device__ __forceinline__ void fetch(const In* __restrict__ src, int n0,
+  __device__ __forceinline__ void fetch(const float* __restrict__ src, int n0,
                                         int N) {
     const int live = (N - n0 < T ? N - n0 : T) * C;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int g = threadIdx.x + k * kThreads, v = g / Q, e = E * (g % Q);
-      buf[k] = make_uint4(0u, 0u, 0u, 0u);
+      const int g = threadIdx.x + k * kThreads, v = g / Q, e = 4 * (g % Q);
+      buf[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (g < V * Q && e < live)
-        buf[k] = __ldg(reinterpret_cast<const uint4*>(
+        buf[k] = __ldg(reinterpret_cast<const float4*>(
             src + (static_cast<long long>(v) * N + n0) * C + e));
     }
   }
   __device__ __forceinline__ void scatter(float* dst) const {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int g = threadIdx.x + k * kThreads, e = E * (g % Q);
+      const int g = threadIdx.x + k * kThreads, e = 4 * (g % Q);
       if (g >= V * Q) break;
-      float f[E];
-      widen<In>(buf[k], f);
+      float f[4];
+      unpack(buf[k], f);
       int r = e / C, c = e % C;
       float* d = dst + g / Q * T;
 #pragma unroll
-      for (int j = 0; j < E; ++j) {
+      for (int j = 0; j < 4; ++j) {
         d[c * MP + r] = f[j];
         if (++c == C) c = 0, ++r;
       }
@@ -329,32 +253,30 @@ struct TileIn {
   }
 };
 
-// The same for any N, an element at a time
-template <int C, typename In>
-__device__ __forceinline__ void load_tile_scalar(const In* __restrict__ src,
+// The same for any N, a float at a time
+template <int C>
+__device__ __forceinline__ void load_tile_scalar(const float* __restrict__ src,
                                                  float* dst, int n0, int N) {
   const int live = (N - n0 < T ? N - n0 : T) * C;
 #pragma unroll 4
   for (int g = threadIdx.x; g < V * T * C; g += kThreads) {
     const int v = g / (T * C), e = g % (T * C);
     dst[e % C * MP + v * T + e / C] =
-        e < live
-            ? to_f(__ldg(src + (static_cast<long long>(v) * N + n0) * C + e))
-            : 0.0f;
+        e < live ? __ldg(src + (static_cast<long long>(v) * N + n0) * C + e)
+                 : 0.0f;
   }
 }
 
-// A tile's four inputs: all their reads in flight at once (fetch), then
-// written into IN (scatter)
-template <typename In>
+// A tile's four inputs: all their float4 reads in flight at once (fetch),
+// then written into IN (scatter)
 struct Inputs {
-  TileIn<C_RGBF, In> a;
-  TileIn<C_NEUR, In> b;
-  TileIn<C_DIFF, In> c;
-  TileIn<1, In> d;
+  TileIn<C_RGBF> a;
+  TileIn<C_NEUR> b;
+  TileIn<C_DIFF> c;
+  TileIn<1> d;
 
-  __device__ __forceinline__ void fetch(const In* rgbf, const In* neur,
-                                        const In* rdiff, const In* mask,
+  __device__ __forceinline__ void fetch(const float* rgbf, const float* neur,
+                                        const float* rdiff, const float* mask,
                                         int tile, int N) {
     a.fetch(rgbf, tile * T, N);
     b.fetch(neur, tile * T, N);
@@ -370,10 +292,9 @@ struct Inputs {
 };
 
 // Tile `tile`'s inputs into IN, for any N
-template <typename In>
 __device__ __forceinline__ void load_inputs_scalar(
-    const In* rgbf, const In* neur, const In* rdiff, const In* mask,
-    float* in, int tile, int N) {
+    const float* rgbf, const float* neur, const float* rdiff,
+    const float* mask, float* in, int tile, int N) {
   load_tile_scalar<C_RGBF>(rgbf, in, tile * T, N);
   load_tile_scalar<C_NEUR>(neur, in + C_RGBF * MP, tile * T, N);
   load_tile_scalar<C_DIFF>(rdiff, in + (C_RGBF + C_NEUR) * MP, tile * T, N);
@@ -383,13 +304,12 @@ __device__ __forceinline__ void load_inputs_scalar(
 // Ask L2 for tile `tile`'s inputs (one bulk prefetch per array and view,
 // its ends rounded down to 16 bytes, so never past the tensor), so that the
 // tile's loads find them there
-template <typename In>
 __device__ __forceinline__ void prefetch_inputs(
-    const In* rgbf, const In* neur, const In* rdiff, const In* mask,
-    int tile, int N) {
+    const float* rgbf, const float* neur, const float* rdiff,
+    const float* mask, int tile, int N) {
   if (threadIdx.x >= 4 * V) return;
   const int k = threadIdx.x / V, v = threadIdx.x % V;
-  const In* src = k == 0 ? rgbf : k == 1 ? neur : k == 2 ? rdiff : mask;
+  const float* src = k == 0 ? rgbf : k == 1 ? neur : k == 2 ? rdiff : mask;
   const int C = k == 0 ? C_RGBF : k == 1 ? C_NEUR : k == 2 ? C_DIFF : 1;
   const int n0 = tile * T, rows = N - n0 < T ? N - n0 : T;
   const long long first = (static_cast<long long>(v) * N + n0) * C;
@@ -402,12 +322,10 @@ __device__ __forceinline__ void prefetch_inputs(
 }
 
 // x [32][MP] -> xout [V,N,32] and vis [MP] -> visout [V,N,1], rows n0..,
-// rows past N skipped, in the output type (rounded to the nearest); x four
-// channels of one row-view at a time
-template <typename Out>
+// rows past N skipped; x as float4s (4 channels of one row-view)
 __device__ __forceinline__ void store_x_vis(const float* x, const float* vis,
-                                            Out* __restrict__ xout,
-                                            Out* __restrict__ visout,
+                                            float* __restrict__ xout,
+                                            float* __restrict__ visout,
                                             int n0, int N) {
   const int rows = N - n0 < T ? N - n0 : T;
   constexpr int Q = T * C_X / 4;
@@ -416,12 +334,13 @@ __device__ __forceinline__ void store_x_vis(const float* x, const float* vis,
     const int v = g / Q, e = 4 * (g % Q), r = e / C_X, c = e % C_X;
     if (r >= rows) continue;
     const float* s = x + c * MP + v * T + r;
-    Out* d = xout + (static_cast<long long>(v) * N + n0) * C_X + e;
-    put4(d, s[0], s[MP], s[2 * MP], s[3 * MP]);
+    float* d = xout + (static_cast<long long>(v) * N + n0) * C_X + e;
+    *reinterpret_cast<float4*>(d) =
+        make_float4(s[0], s[MP], s[2 * MP], s[3 * MP]);
   }
   for (int m = threadIdx.x; m < M; m += kThreads)
     if (m % T < rows)
-      put(visout + static_cast<long long>(m / T) * N + n0 + m % T, vis[m]);
+      visout[static_cast<long long>(m / T) * N + n0 + m % T] = vis[m];
 }
 
 // base_fc.0's gf block over the T rows, split over its 140 input channels
@@ -439,18 +358,13 @@ __device__ __forceinline__ void gf_block(const float* sW, const float* gf,
   if constexpr (P + 1 < kGfParts) gf_block<P + 1>(sW, gf, h);
 }
 
-// In: float, or bf16 for the bfloat16 instance (the header's last part)
-template <typename In>
 __global__ void __launch_bounds__(kThreads, 1)
-view_fuse_kernel(const In* __restrict__ rgbf, const In* __restrict__ neur,
-                 const In* __restrict__ rdiff, const In* __restrict__ mask,
+view_fuse_kernel(const float* __restrict__ rgbf, const float* __restrict__ neur,
+                 const float* __restrict__ rdiff, const float* __restrict__ mask,
                  const float* __restrict__ wpack,
-                 In* __restrict__ feat_const, float* __restrict__ num_valid,
-                 In* __restrict__ xout, In* __restrict__ visout, int N,
+                 float* __restrict__ feat_const, float* __restrict__ num_valid,
+                 float* __restrict__ xout, float* __restrict__ visout, int N,
                  bool vec) {
-  constexpr bool kBf = std::is_same<In, bf16>::value;
-  // the operand roundings of the bfloat16 instance; none in float32
-  constexpr int kI = kBf ? kRndIn : 0, kO = kBf ? kRndOut : 0;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const float* sW = smem;
@@ -480,7 +394,7 @@ view_fuse_kernel(const In* __restrict__ rgbf, const In* __restrict__ neur,
     const int n0 = tile * T;
     // nothing reads IN after base_fc.0, so the copy needs no barrier first
     if (vec) {
-      Inputs<In> in;
+      Inputs in;
       in.fetch(rgbf, neur, rdiff, mask, tile, N);
       in.scatter(rf);
     } else {
@@ -500,9 +414,8 @@ view_fuse_kernel(const In* __restrict__ rgbf, const In* __restrict__ neur,
       wt[m] = mk_in[m] * (1.0f / (nv + 1e-8f));
       if (m < T && n0 + m < N) num_valid[n0 + m] = nv;
     }
-    layer<0, kElu, kDstNone, kO>(sW, rd, h16, nullptr, nullptr);   // 6 warp
-    layer<2, kElu, kDstNone, kO>(sW, nr, h8, nullptr, nullptr,     // tiles, 3
-                                 kWarps / 2);
+    layer<0, kElu>(sW, rd, h16, nullptr, nullptr);            // 6 warp tiles
+    layer<2, kElu>(sW, nr, h8, nullptr, nullptr, kWarps / 2);  // 3
     __syncthreads();
     layer<1, kElu, kDstRes>(sW, h16, rf, nullptr, nullptr);   // rf = rgbf + df
     layer<3, kSigm>(sW, h8, w0, nullptr, wt, kWarps / 4);     // w0, weighted
@@ -523,8 +436,8 @@ view_fuse_kernel(const In* __restrict__ rgbf, const In* __restrict__ neur,
 #pragma unroll
         for (int u = 0; u < V; ++u)
           var += w[u * T + r] * ((f[u] - mean) * (f[u] - mean));
-        gf[(2 * s * C_RGBF + c) * T + r] = kBf ? rnd(mean) : mean;
-        gf[((2 * s + 1) * C_RGBF + c) * T + r] = kBf ? rnd(var) : var;
+        gf[(2 * s * C_RGBF + c) * T + r] = mean;
+        gf[((2 * s + 1) * C_RGBF + c) * T + r] = var;
       }
     }
     __syncthreads();
@@ -532,10 +445,6 @@ view_fuse_kernel(const In* __restrict__ rgbf, const In* __restrict__ neur,
     // base_fc.0: its gf block (+ bias) once per row, then the per-view
     // rf | neur block on top
     gf_block<0>(sW, gf, h);
-    if constexpr (kBf) {   // rf as base_fc.0's operand, the gf pass done
-      for (int g = threadIdx.x; g < C_RGBF * M; g += kThreads)
-        rf[g / M * MP + g % M] = rnd(rf[g / M * MP + g % M]);
-    }
     __syncthreads();
     for (int g = threadIdx.x; g < 64 * T; g += kThreads) {
       float* row = h + (g / T) * MP + g % T;   // this thread owns (o, r)
@@ -546,14 +455,13 @@ view_fuse_kernel(const In* __restrict__ rgbf, const In* __restrict__ neur,
       for (int v = 0; v < V; ++v) row[v * T] = s;
     }
     __syncthreads();
-    tile_linear<C_RGBF + C_NEUR, 64, M, kElu, kDstInit, 64, kO>(
+    tile_linear<C_RGBF + C_NEUR, 64, M, kElu, kDstInit>(
         rf, MP, sW + kBase0W + C_GF * 64, nullptr, h, MP, nullptr, nullptr);
     __syncthreads();
 
     layer<5, kElu>(sW, h, x, nullptr, nullptr);
     __syncthreads();
-    layer<6, kElu, kDstNone, kI | kO>(sW, x, a32, wt, nullptr);  // vis_fc.0
-                                                      // on x * weight
+    layer<6, kElu>(sW, x, a32, wt, nullptr);      // vis_fc.0 on x * weight
     __syncthreads();
     // vis_fc.2 as its first 32 outputs (x += xv[:32]) and its last, the
     // visibility logit: vis1 = sigmoid(elu(.)) * mask
@@ -563,8 +471,7 @@ view_fuse_kernel(const In* __restrict__ rgbf, const In* __restrict__ neur,
         a32, MP, sW + w_off(7) + C_X, sW + b_off(7) + C_X, vis1, MP, nullptr,
         mk, kWarps - 2);
     __syncthreads();
-    layer<8, kElu, kDstNone, kI | kO>(sW, x, a32, vis1, nullptr);  // vis_fc2.0
-                                                        // on x * vis1
+    layer<8, kElu>(sW, x, a32, vis1, nullptr);     // vis_fc2.0 on x * vis1
     __syncthreads();
     layer<9, kSigm>(sW, a32, vis, nullptr, mk);    // vis = sigmoid(.) * mask
     __syncthreads();
@@ -601,47 +508,12 @@ view_fuse_kernel(const In* __restrict__ rgbf, const In* __restrict__ neur,
 
     // the next iteration's barrier keeps its writes behind these reads
     const int total = (N - n0 < T ? N - n0 : T) * C_OUT;
-    In* fo = feat_const + static_cast<long long>(n0) * C_OUT;   // 16 B aligned
-    if constexpr (kBf) {
-      for (int g = threadIdx.x; g < total; g += kThreads) put(fo + g, stage[g]);
-    } else {
-      for (int g = threadIdx.x; g < total / 4; g += kThreads)
-        *reinterpret_cast<float4*>(fo + 4 * g) = ld4(stage + 4 * g);
-      for (int g = total / 4 * 4 + threadIdx.x; g < total; g += kThreads)
-        fo[g] = stage[g];
-    }
+    float* fo = feat_const + static_cast<long long>(n0) * C_OUT;   // 16 B aligned
+    for (int g = threadIdx.x; g < total / 4; g += kThreads)
+      *reinterpret_cast<float4*>(fo + 4 * g) = ld4(stage + 4 * g);
+    for (int g = total / 4 * 4 + threadIdx.x; g < total; g += kThreads)
+      fo[g] = stage[g];
   }
-}
-
-template <typename In>
-int launch(const In* rgbf, const In* neur, const In* rdiff, const In* mask,
-           const float* wpack, In* feat_const, float* num_valid, In* xout,
-           In* visout, int N, cudaStream_t stream) {
-  if (N == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      view_fuse_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, view_fuse_kernel<In>, kThreads, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int ntiles = (N + T - 1) / T;
-  int blocks = sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > ntiles) blocks = ntiles;
-  const size_t addr = reinterpret_cast<size_t>(rgbf) |
-                      reinterpret_cast<size_t>(neur) |
-                      reinterpret_cast<size_t>(rdiff) |
-                      reinterpret_cast<size_t>(mask);
-  // 16-byte tile loads
-  const bool vec = N % (16 / sizeof(In)) == 0 && addr % 16 == 0;
-  view_fuse_kernel<In><<<blocks, kThreads, kSmemBytes, stream>>>(
-      rgbf, neur, rdiff, mask, wpack, feat_const, num_valid, xout, visout, N,
-      vec);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -657,18 +529,28 @@ extern "C" int view_fuse_forward(const float* rgbf, const float* neur,
                                  const float* wpack, float* feat_const,
                                  float* num_valid, float* xout, float* visout,
                                  int N, cudaStream_t stream) {
-  return launch(rgbf, neur, rdiff, mask, wpack, feat_const, num_valid, xout,
-                visout, N, stream);
-}
-
-// The bfloat16 instance: bfloat16 inputs, feat_const, x and vis; num_valid
-// and the pack (pack_weights(weights, bfloat16)) float32
-extern "C" int view_fuse_forward_bf16(const bf16* rgbf, const bf16* neur,
-                                      const bf16* rdiff, const bf16* mask,
-                                      const float* wpack, bf16* feat_const,
-                                      float* num_valid, bf16* xout,
-                                      bf16* visout, int N,
-                                      cudaStream_t stream) {
-  return launch(rgbf, neur, rdiff, mask, wpack, feat_const, num_valid, xout,
-                visout, N, stream);
+  if (N == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      view_fuse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, view_fuse_kernel, kThreads, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ntiles = (N + T - 1) / T;
+  int blocks = sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > ntiles) blocks = ntiles;
+  const size_t addr = reinterpret_cast<size_t>(rgbf) |
+                      reinterpret_cast<size_t>(neur) |
+                      reinterpret_cast<size_t>(rdiff) |
+                      reinterpret_cast<size_t>(mask);
+  const bool vec = N % 4 == 0 && addr % 16 == 0;   // float4 tile loads
+  view_fuse_kernel<<<blocks, kThreads, kSmemBytes, stream>>>(
+      rgbf, neur, rdiff, mask, wpack, feat_const, num_valid, xout, visout, N,
+      vec);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,9 @@
 Replaces the Pallas kernel `_kernel` / `view_fuse`
 (graspnerf_tpu/ops/pallas/ibrnet_fuse.py:115-253); `view_fuse_plain` is the
 port of its jnp oracle `view_fuse_reference` (:52-98). On CUDA tensors
-`view_fuse` launches csrc/view_fuse.cu; its backward recomputes through the
-plain version, as the JAX custom VJP does.
+`view_fuse` launches csrc/view_fuse.cu (float32) or csrc/view_fuse_bf16.cu
+(bfloat16); its backward recomputes through the plain version, as the JAX
+custom VJP does.
 
 Inputs are [V,N,C] with V = 6 views leading: rgbf [V,N,35] (rgb | image
 features), neur [V,N,32] (prob embedding), rdiff [V,N,4] (direction
@@ -49,10 +50,29 @@ def _pad4(o: int) -> int:
 # (view_fuse_pack_floats) and the wrapper refuses a library that differs.
 PACK_FLOATS = sum((i + 1) * _pad4(o) for i, o in LAYER_DIMS)
 
+# pack_weights_bf16's blocks of mma B fragments, K x N zero-padded to
+# multiples of 16 x 8: (layer, [(k, input channel, count), ...], K, N).
+# base_fc.0 is split as the bfloat16 kernel computes it: its gf block
+# (channels 0..139) once per row, and its per-view block on [rf | 0 | neur]
+# (rf at k 0..34, neur at k 48..79: each starts a k16 step's fragments).
+BF16_BLOCKS = (
+    (0, [(0, 0, 4)], 16, 16), (1, [(0, 0, 16)], 16, 40),
+    (2, [(0, 0, 32)], 32, 8), (3, [(0, 0, 8)], 16, 8),
+    (4, [(0, 0, 140)], 144, 64), (4, [(0, 140, 35), (48, 175, 32)], 80, 64),
+    (5, [(0, 0, 64)], 64, 32), (6, [(0, 0, 32)], 32, 32),
+    (7, [(0, 0, 32)], 32, 40), (8, [(0, 0, 32)], 32, 32),
+    (9, [(0, 0, 32)], 32, 8))
+# each layer's bias, float32, padded to its block's N
+BF16_BIAS_N = (16, 40, 8, 8, 64, 32, 32, 40, 32, 8)
+# bfloat16 elements of pack_weights_bf16's buffer; the library states its
+# own (view_fuse_bf16_pack_elems)
+PACK_BF16_ELEMS = (sum(k * n for _, _, k, n in BF16_BLOCKS)
+                   + 2 * sum(BF16_BIAS_N))
+
 Pair = Tuple[torch.Tensor, torch.Tensor]
 F32, BF16 = torch.float32, torch.bfloat16
-_lib = None
-_pack_cache: list = []   # [(weights, (versions, device, dtype), pack)]
+_libs: dict = {}          # dtype -> loaded kernel library
+_pack_cache: dict = {}    # dtype -> (weights, (versions, device), pack)
 
 
 def _weighted_mean_var(x, w):
@@ -97,69 +117,132 @@ def view_fuse_plain(rgbf, neur, rdiff, mask, weights: Sequence[Pair],
             vis.to(dtype))
 
 
-def pack_weights(weights: Sequence[Pair], dtype=F32) -> torch.Tensor:
-    """The kernel's weight buffer, float32: each weight (rounded to `dtype`)
-    transposed to [I][O4] (O padded with zeros to a multiple of 4, for
-    float4 reads), all weights in W_NAMES order, then all biases (float32)
-    padded to O4."""
-    ws, bs = [], []
+def _check_shapes(weights: Sequence[Pair]) -> None:
     for (w, b), (i, o) in zip(weights, LAYER_DIMS):
         if tuple(w.shape) != (o, i) or tuple(b.shape) != (o,):
             raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)}"
                              f" is not Linear({i}, {o})")
+
+
+def pack_weights(weights: Sequence[Pair]) -> torch.Tensor:
+    """The float32 kernel's weight buffer: each weight transposed to [I][O4]
+    (O padded with zeros to a multiple of 4, for float4 reads), all weights
+    in W_NAMES order, then all biases padded to O4."""
+    _check_shapes(weights)
+    ws, bs = [], []
+    for (w, b), (i, o) in zip(weights, LAYER_DIMS):
         o4 = _pad4(o)
-        w = w.detach().to(dtype).to(F32)
-        ws.append(F.pad(w.t(), (0, o4 - o)).reshape(-1))
+        ws.append(F.pad(w.detach().to(F32).t(), (0, o4 - o)).reshape(-1))
         bs.append(F.pad(b.detach().to(F32), (0, o4 - o)))
     return torch.cat(ws + bs).contiguous()
 
 
+def pack_weights_bf16(weights: Sequence[Pair]) -> torch.Tensor:
+    """The bfloat16 kernel's weight buffer, PACK_BF16_ELEMS bfloat16: the
+    weights rounded to bfloat16 as BF16_BLOCKS' blocks of mma.m16n8k16 B
+    fragments, then the biases, float32, padded to BF16_BIAS_N (their bytes
+    viewed as bfloat16 pairs).
+
+    A block W [K][N] (W[k][n] = weight[n][input channel of k], zeros in the
+    padding) is stored k16 step by k16 step s, in each n8 tile by n8 tile
+    j, in each 32 lanes of 4 values: lane 4g + t holds W[16s + 2t + {0, 1,
+    8, 9}][8j + g], the B fragment (two 32-bit registers) of its lane."""
+    _check_shapes(weights)
+    ws = []
+    for layer, spans, k, n in BF16_BLOCKS:
+        w = weights[layer][0].detach().to(F32)
+        dense = torch.zeros(k, n, device=w.device)
+        for k0, c0, cnt in spans:
+            dense[k0:k0 + cnt, :w.shape[0]] = w[:, c0:c0 + cnt].t()
+        # [s, half, t, pair, j, g] -> [s, j, g, t, half, pair]
+        ws.append(dense.reshape(k // 16, 2, 4, 2, n // 8, 8)
+                  .permute(0, 4, 5, 2, 1, 3).reshape(-1))
+    bs = [F.pad(b.detach().to(F32), (0, n - b.shape[0]))
+          for (_, b), n in zip(weights, BF16_BIAS_N)]
+    return torch.cat([torch.cat(ws).to(BF16),
+                      torch.cat(bs).view(BF16)]).contiguous()
+
+
+_PACKERS = {F32: pack_weights, BF16: pack_weights_bf16}
+
+
 def _packed(weights: Sequence[Pair], device, dtype=F32) -> torch.Tensor:
-    """pack_weights(weights, dtype) on `device`, kept for the next call:
-    packed again only when a weight is another tensor or was changed in
-    place (its version counter moved), or for another dtype. The kept
-    tensors cannot be freed, so a new weight never takes an old one's
-    identity."""
+    """The `dtype` kernel's weight pack on `device`, kept for the next call,
+    one per dtype: packed again only when a weight is another tensor or was
+    changed in place (its version counter moved), or for another device.
+    The kept tensors cannot be freed, so a new weight never takes an old
+    one's identity."""
+    pack_fn = _PACKERS[dtype]
     flat = tuple(t for pair in weights for t in pair)
     if any(t.is_inference() for t in flat):     # they keep no version
-        return pack_weights(weights, dtype).to(device)
-    key = (tuple(t._version for t in flat), device, dtype)
-    if _pack_cache:
-        kept, kept_key, pack = _pack_cache[0]
+        return pack_fn(weights).to(device)
+    key = (tuple(t._version for t in flat), device)
+    if dtype in _pack_cache:
+        kept, kept_key, pack = _pack_cache[dtype]
         if (kept_key == key and len(kept) == len(flat)
                 and all(a is b for a, b in zip(kept, flat))):
             return pack
-    pack = pack_weights(weights, dtype).to(device)
-    _pack_cache[:] = [(flat, key, pack)]
+    pack = pack_fn(weights).to(device)
+    _pack_cache[dtype] = (flat, key, pack)
     return pack
 
 
-def check_pack(lib: ctypes.CDLL, pack_floats: int) -> None:
-    """Raise unless the kernel library reads a `pack_floats`-float pack."""
-    expect = lib.view_fuse_pack_floats()
-    if expect != pack_floats:
-        raise RuntimeError(f"view_fuse: the kernel reads a {expect}-float "
-                           f"weight pack, pack_weights gives {pack_floats}")
+# per dtype: the csrc source, its pack-size and row-tile functions, the
+# pack's size, its forward entry point
+_LIB_SPEC = {
+    F32: ("view_fuse", "view_fuse_pack_floats", "view_fuse_tile_rows",
+          PACK_FLOATS, "view_fuse_forward"),
+    BF16: ("view_fuse_bf16", "view_fuse_bf16_pack_elems",
+           "view_fuse_bf16_slab_rows", PACK_BF16_ELEMS,
+           "view_fuse_bf16_forward")}
 
 
-def library(pack_floats: int = PACK_FLOATS) -> ctypes.CDLL:
-    """The kernel's library, checked against the pack size at first load."""
-    global _lib
-    if _lib is None:
-        lib = build.load("view_fuse")
-        for name in ("view_fuse_pack_floats", "view_fuse_tile_rows"):
-            getattr(lib, name).restype = ctypes.c_int
-            getattr(lib, name).argtypes = []
-        check_pack(lib, pack_floats)
-        for name in ("view_fuse_forward", "view_fuse_forward_bf16"):
-            getattr(lib, name).argtypes = ([ctypes.c_void_p] * 9
-                                           + [ctypes.c_int, ctypes.c_void_p])
-            getattr(lib, name).restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def check_pack(lib: ctypes.CDLL, pack_size: int, dtype=F32) -> None:
+    """Raise unless the `dtype` kernel library reads a pack of `pack_size`
+    elements."""
+    expect = getattr(lib, _LIB_SPEC[dtype][1])()
+    if expect != pack_size:
+        raise RuntimeError(f"view_fuse: the {dtype} kernel reads a "
+                           f"{expect}-element weight pack, its packer gives "
+                           f"{pack_size}")
 
 
-def _launch(rgbf, neur, rdiff, mask, weights: Sequence[Pair], dtype=F32):
+def library(dtype=F32) -> ctypes.CDLL:
+    """The `dtype` kernel's library, checked against the pack size at first
+    load."""
+    if dtype not in _libs:
+        name, size_fn, rows_fn, size, forward = _LIB_SPEC[dtype]
+        lib = build.load(name)
+        for fn in (size_fn, rows_fn):
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = []
+        check_pack(lib, size, dtype)
+        getattr(lib, forward).argtypes = ([ctypes.c_void_p] * 9
+                                          + [ctypes.c_int, ctypes.c_void_p])
+        getattr(lib, forward).restype = ctypes.c_int
+        if dtype == BF16:
+            lib.view_fuse_bf16_info.argtypes = [ctypes.c_void_p]
+            lib.view_fuse_bf16_info.restype = ctypes.c_int
+        _libs[dtype] = lib
+    return _libs[dtype]
+
+
+def kernel_info() -> dict:
+    """The bfloat16 kernel as built, on the current card: registers and
+    spilled (local) bytes a thread, shared memory and threads a block,
+    resident blocks per SM."""
+    out = (ctypes.c_int * 5)()
+    build.check(library(BF16).view_fuse_bf16_info(out), "view_fuse_bf16")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm", "threads"), out))
+
+
+def launcher(rgbf, neur, rdiff, mask, weights: Sequence[Pair], outs,
+             dtype=F32):
+    """Check the CUDA tensors once and return a call that launches the
+    `dtype` kernel on them, writing `outs` (feat_const, num_valid, x, vis):
+    the wrapper's launch, and the bare launch that chip_smoke.py times. Each
+    call counts one launch."""
     V, N = rgbf.shape[:2]
     shapes = ((rgbf, C_RGBF), (neur, C_NEUR), (rdiff, C_DIFF), (mask, 1))
     if dtype not in (F32, BF16):
@@ -170,27 +253,37 @@ def _launch(rgbf, neur, rdiff, mask, weights: Sequence[Pair], dtype=F32):
                              f"[{V_VIEWS},{N},{c}]")
         if t.dtype != dtype or not t.is_contiguous():
             raise TypeError(f"kernel takes contiguous {dtype} inputs")
-        if t.device != rgbf.device:
-            raise ValueError("all tensors must lie on one device")
+    out_shapes = ((N, C_OUT), (N, 1), (V, N, C_X), (V, N, 1))
+    for t, shape, dt in zip(outs, out_shapes, (dtype, F32, dtype, dtype)):
+        if tuple(t.shape) != shape or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"output {tuple(t.shape)} {t.dtype} is not a "
+                             f"contiguous {shape} {dt}")
+    if any(t.device != rgbf.device for t in (neur, rdiff, mask, *outs)):
+        raise ValueError("all tensors must lie on one device")
     wpack = _packed(weights, rgbf.device, dtype)
+    fn = getattr(library(dtype), _LIB_SPEC[dtype][4])
+    tensors = (rgbf, neur, rdiff, mask, wpack, *outs)
+    args = [t.data_ptr() for t in tensors] + [N]
+    device = rgbf.device
+
+    def launch():
+        with torch.cuda.device(device):
+            status = fn(*args, torch.cuda.current_stream().cuda_stream)
+        build.check(status, "view_fuse")
+        view_fuse.launches += 1
+        view_fuse.bf16_launches += dtype == BF16
+        return tensors[5:]    # the closure keeps every tensor alive
+
+    return launch
+
+
+def _launch(rgbf, neur, rdiff, mask, weights: Sequence[Pair], dtype=F32):
+    V, N = rgbf.shape[:2]
     dev = dict(dtype=dtype, device=rgbf.device)
-    feat_const = torch.empty((N, C_OUT), **dev)
-    num_valid = torch.empty((N, 1), dtype=F32, device=rgbf.device)
-    x = torch.empty((V, N, C_X), **dev)
-    vis = torch.empty((V, N, 1), **dev)
-    lib = library(wpack.numel())
-    fn = lib.view_fuse_forward if dtype == F32 else lib.view_fuse_forward_bf16
-    with torch.cuda.device(rgbf.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = fn(rgbf.data_ptr(), neur.data_ptr(), rdiff.data_ptr(),
-                    mask.data_ptr(), wpack.data_ptr(), feat_const.data_ptr(),
-                    num_valid.data_ptr(), x.data_ptr(), vis.data_ptr(), N,
-                    stream)
-    build.check(status, "view_fuse")
-    view_fuse.launches += 1
-    if dtype == BF16:
-        view_fuse.bf16_launches += 1
-    return feat_const, num_valid, x, vis
+    outs = (torch.empty((N, C_OUT), **dev),
+            torch.empty((N, 1), dtype=F32, device=rgbf.device),
+            torch.empty((V, N, C_X), **dev), torch.empty((V, N, 1), **dev))
+    return launcher(rgbf, neur, rdiff, mask, weights, outs, dtype)()
 
 
 class _ViewFuseFn(torch.autograd.Function):
@@ -233,6 +326,10 @@ def view_fuse(rgbf, neur, rdiff, mask, weights: Sequence[Pair], dtype=F32):
     if rgbf.device.type != "cuda":
         raise ValueError(f"no view fuse for device {rgbf.device}")
     flat_w = [t for pair in weights for t in pair]
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (rgbf, neur, rdiff, mask,
+                                              *flat_w))):
+        return _launch(rgbf, neur, rdiff, mask, weights, dtype)
     return _ViewFuseFn.apply(dtype, rgbf, neur, rdiff, mask, *flat_w)
 
 

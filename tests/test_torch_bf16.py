@@ -50,11 +50,14 @@ from graspnerf_tpu_torch.models import nn_blocks as TB
 from graspnerf_tpu_torch.ops import geometry as TG
 from graspnerf_tpu_torch.ops.epipolar_gather import (epipolar_gather,
                                                      epipolar_gather_plain)
-from graspnerf_tpu_torch.ops.view_fuse import view_fuse, view_fuse_plain
+from graspnerf_tpu_torch.ops.view_fuse import (BF16_BIAS_N,
+                                               pack_weights_bf16, view_fuse,
+                                               view_fuse_plain)
 
 from ref_harness import rand_cameras
 from test_fused_gather import _mk
-from test_torch_models import V, _fuse_inputs, graspnerf_params, sub
+from test_torch_models import (V, _fuse_inputs, graspnerf_params,
+                               read_bf16_pack, sub)
 
 BF = torch.bfloat16
 JBF = jnp.bfloat16
@@ -128,7 +131,45 @@ def fuse_run():
     wt = [(torch.from_numpy(k.T.copy()), torch.from_numpy(b)) for k, b in wj]
     ins = [torch.from_numpy(x).to(BF) for x in inputs]
     return {"want": want, "plain": view_fuse_plain(*ins, wt, BF),
-            "wrapper": view_fuse(*ins, wt, BF)}
+            "wrapper": view_fuse(*ins, wt, BF),
+            "split": fuse_from_pack_bf16(*ins, pack_weights_bf16(wt))}
+
+
+def fuse_from_pack_bf16(rgbf, neur, rdiff, mask, pack):
+    """The bfloat16 view fuse computed as csrc/view_fuse_bf16.cu computes
+    it, in plain PyTorch from the kernel's weight pack: each operand rounded
+    to bfloat16 and zero-padded to its block's K, float32 products and
+    bias; base_fc.0 as its gf block once per row (plus the bias) plus the
+    per-view block on [rf | 0 | neur]."""
+    blocks, bias = read_bf16_pack(pack)
+    bias = torch.split(bias, BF16_BIAS_N)
+
+    def lin(x, block, layer):
+        k = blocks[block].shape[0]
+        x = torch.nn.functional.pad(x.to(BF).float(), (0, k - x.shape[-1]))
+        return x @ blocks[block] + bias[layer]
+
+    def mean_var(x, w):
+        mean = (x * w).sum(0)
+        return mean, (w * (x - mean) ** 2).sum(0)
+
+    elu = torch.nn.functional.elu
+    rgbf, neur, rdiff, mask = (t.float() for t in (rgbf, neur, rdiff, mask))
+    nv = mask.sum(0)
+    weight = mask / (nv + 1e-8)
+    rf = rgbf + elu(lin(elu(lin(rdiff, 0, 0)), 1, 1))[..., :35]
+    w0 = torch.sigmoid(lin(elu(lin(neur, 2, 2)), 3, 3)[..., :1]) * weight
+    gf = torch.cat([*mean_var(rf, w0), *mean_var(rf, weight)], -1)
+    per_view = torch.cat([rf, rf.new_zeros(*rf.shape[:2], 13), neur], -1)
+    h = lin(gf, 4, 4)[None] + per_view.to(BF).float() @ blocks[5]
+    x = elu(lin(elu(h), 6, 5))
+    xv = elu(lin(elu(lin(x * weight, 7, 6)), 8, 7))
+    x = x + xv[..., :32]
+    vis = torch.sigmoid(xv[..., 32:33]) * mask
+    vis = torch.sigmoid(lin(elu(lin(x * vis, 9, 8)), 10, 9)[..., :1]) * mask
+    w2 = vis / (vis.sum(0, keepdim=True) + 1e-8)
+    fc = torch.cat([*mean_var(x, w2), w2.mean(0)], -1)
+    return fc.to(BF), nv, x.to(BF), vis.to(BF)
 
 
 @pytest.mark.parametrize("i", range(4), ids=FUSE_OUT)
@@ -144,6 +185,22 @@ def test_view_fuse_bf16_plain_matches_pallas_kernel(fuse_run, i):
         return
     assert got.dtype == BF and want.dtype == JBF
     within(got, want, 1, FUSE_OUT[i])
+
+
+@pytest.mark.parametrize("i", range(4), ids=FUSE_OUT)
+def test_view_fuse_bf16_kernel_split_matches(fuse_run, i):
+    """The kernel's way of computing (its weight pack, padded operands,
+    base_fc.0 split into a gf block per row and a per-view block), in plain
+    PyTorch: num_valid exact; feat_const, x and vis within 1 ulp of each
+    output's scale of the plain version and of the Pallas kernel (the split
+    changes only float32 summation order, which can flip one operand's
+    bfloat16 rounding, as between the plain version and the kernel)."""
+    got = fuse_run["split"][i]
+    for ref in (fuse_run["plain"][i], fuse_run["want"][i]):
+        if FUSE_OUT[i] == "num_valid":
+            np.testing.assert_array_equal(f32(got), f32(ref))
+        else:
+            within(got, ref, 1, FUSE_OUT[i])
 
 
 @pytest.mark.parametrize("case", ["border", "all_valid"])

@@ -23,8 +23,10 @@ from graspnerf_tpu.ops.pallas.ibrnet_fuse import view_fuse_reference
 
 from graspnerf_tpu_torch import models as TM
 from graspnerf_tpu_torch.convert import flax_to_state_dict
-from graspnerf_tpu_torch.ops.view_fuse import (LAYER_DIMS, PACK_FLOATS,
-                                               _packed, pack_weights,
+from graspnerf_tpu_torch.ops.view_fuse import (BF16_BIAS_N, BF16_BLOCKS,
+                                               LAYER_DIMS, PACK_BF16_ELEMS,
+                                               PACK_FLOATS, _packed,
+                                               pack_weights, pack_weights_bf16,
                                                view_fuse, view_fuse_plain)
 
 V, H, W = 6, 64, 96
@@ -217,6 +219,80 @@ def test_pack_kept_until_weights_change(rng):
     copies = [(w.clone(), b.clone()) for w, b in pairs]
     again = _packed(copies, cpu)
     assert again is not changed and torch.equal(again, changed)
+
+
+def read_bf16_pack(pack):
+    """pack_weights_bf16's buffer read as csrc/view_fuse_bf16.cu reads it:
+    in block b (K x N), element ((s * N/8 + j) * 32 + 4g + t) * 4 + e is
+    the m16n8k16 B fragment's W[16s + 2t + e % 2 + 8 (e // 2)][8j + g].
+    Returns the dense [K][N] blocks (float32) and the float32 biases."""
+    blocks, off = [], 0
+    for _, _, k, n in BF16_BLOCKS:
+        s, j, g, t, e = np.meshgrid(np.arange(k // 16), np.arange(n // 8),
+                                    np.arange(8), np.arange(4), np.arange(4),
+                                    indexing="ij")
+        rows = (16 * s + 2 * t + e % 2 + 8 * (e // 2)).ravel()
+        dense = torch.zeros(k, n)
+        dense[rows, (8 * j + g).ravel()] = pack[off:off + k * n].float()
+        blocks.append(dense)
+        off += k * n
+    return blocks, pack[off:].view(torch.float32)
+
+
+def test_pack_weights_bf16_round_trip(rng):
+    """pack_weights_bf16's buffer, read in the kernel's fragment order,
+    gives every weight rounded to bfloat16 bit for bit (transposed, K and N
+    zero-padded; base_fc.0 as its gf block, input channels 0..139, and its
+    per-view block, rf channels at k 0..34 and neur at k 48..79) and every
+    bias in float32, and its length is the PACK_BF16_ELEMS the wrapper
+    holds the kernel library to."""
+    pairs = [(torch.from_numpy(rng.randn(o, i).astype(np.float32)),
+              torch.from_numpy(rng.randn(o).astype(np.float32)))
+             for i, o in LAYER_DIMS]
+    pack = pack_weights_bf16(pairs)
+    assert pack.shape == (PACK_BF16_ELEMS,) and pack.dtype == torch.bfloat16
+    blocks, biases = read_bf16_pack(pack)
+    wt = [w.to(torch.bfloat16).float().t() for w, _ in pairs]     # [I][O]
+    (b0, b1, b2, b3, gf, per_view, b5, b6, b7, b8, b9) = blocks
+    for blk, layer in zip((b0, b1, b2, b3, b5, b6, b7, b8, b9),
+                          (0, 1, 2, 3, 5, 6, 7, 8, 9)):
+        i, o = LAYER_DIMS[layer]
+        assert torch.equal(blk[:i, :o], wt[layer])
+        assert not blk[i:].any() and not blk[:, o:].any()
+    assert torch.equal(torch.cat([gf[:140], per_view[:35], per_view[48:]]),
+                       wt[4])
+    assert not gf[140:].any() and not per_view[35:48].any()
+    off = 0
+    for (_, b), n in zip(pairs, BF16_BIAS_N):
+        assert torch.equal(biases[off:off + b.numel()], b)
+        assert not biases[off + b.numel():off + n].any()
+        off += n
+    assert off == biases.numel()
+
+
+def test_pack_kept_per_dtype(rng):
+    """The wrapper keeps one pack per dtype, each the packer's for its
+    dtype, and packs both again when a weight changes in place."""
+    pairs = [(torch.from_numpy(rng.randn(o, i).astype(np.float32)),
+              torch.from_numpy(rng.randn(o).astype(np.float32)))
+             for i, o in LAYER_DIMS]
+    cpu, bf = torch.device("cpu"), torch.bfloat16
+
+    def bits(t):   # the bf16 pack's bias bytes may read as NaNs
+        return t.view(torch.int16) if t.dtype == bf else t
+
+    first = {dt: _packed(pairs, cpu, dt) for dt in (torch.float32, bf)}
+    assert torch.equal(bits(first[bf]), bits(pack_weights_bf16(pairs)))
+    for dt in (torch.float32, bf):
+        assert _packed(pairs, cpu, dt) is first[dt]
+    with torch.no_grad():
+        pairs[7][0].add_(1.0)
+    for dt, packer in ((torch.float32, pack_weights),
+                       (bf, pack_weights_bf16)):
+        again = _packed(pairs, cpu, dt)
+        assert again is not first[dt]
+        assert torch.equal(bits(again), bits(packer(pairs)))
+        assert _packed(pairs, cpu, dt) is again
 
 
 def test_ibrnet_sdf_rgb_match_jax(rng):
