@@ -43,7 +43,10 @@ NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
    and outputs, and times it (wrapper and bare launch);
 8. holds the gather's backward kernel against autograd through the plain
    version on the card and on the CPU, on random, the planner's and the
-   train pass's coordinates, at ragged P and misaligned, and times it;
+   train pass's coordinates, at ragged P and misaligned, checks that two
+   launches give bit-equal gradients, counts its CUDA launches a call with
+   torch.profiler, reports its kernels' registers, spills and shared
+   memory, and times it;
 9. times the planner's phases with CUDA events;
 10. the bfloat16 inference path (`compute_dtype="bfloat16"`): drives the
    planner and the render at the same full widths through the bfloat16
@@ -131,9 +134,11 @@ TRAIN_GRAD_RTOL, GRAD_FLOOR = 2e-2, 1e-7
 # - gather backward vs autograd through the plain version: on the card, the
 #   forward's weights differ by the division's rounding (up to ~3e-5 of a
 #   full-res pixel per weight, summed over a cell's contributions); on the
-#   CPU the weights are bit-equal and only the sum order differs (atomics),
-#   so there each map cell is held to BWD_SUM_RTOL of the sum of the
-#   absolute values of its contributions.
+#   CPU the weights are bit-equal and only the sum order differs (the
+#   kernel's fixed order against autograd's; d_imgs's atomics), so there
+#   each map cell is held to BWD_SUM_RTOL of the sum of the absolute values
+#   of its contributions. Two launches on the same inputs give bit-equal
+#   maps' gradients (d_imgs, scalar atomics on no path, is not compared).
 BWD_ATOL, BWD_RTOL, BWD_SUM_RTOL = 5e-4, 1e-5, 1e-4
 # bfloat16, kernel vs plain version on the card (the same model weights):
 # - view fuse: both round the same float32 values to bfloat16 at the same
@@ -1558,8 +1563,10 @@ def gather_backward_library(args, grads):
 
 def check_gather_backward(dev, gen, planner, scene, train_args):
     """The gather's backward kernel against autograd through the plain
-    version, on the card and on the CPU, and its times. train_args: the
-    gather's arguments in the train step's coarse pass."""
+    version, on the card and on the CPU, two of its launches bit for bit,
+    non-finite upstream values at invalid points, its CUDA launches a call,
+    its kernels' registers, spills and shared memory, and its times.
+    train_args: the gather's arguments in the train step's coarse pass."""
     from graspnerf_tpu_torch.ops import epipolar_gather as eg
     # xy requiring a gradient is refused, not silently dropped
     xy = gather_inputs(gen, dev, 64)
@@ -1588,15 +1595,24 @@ def check_gather_backward(dev, gen, planner, scene, train_args):
         d_rgb = torch.randn(V, P, 3 + C, generator=gen).to(dev)
         d_ray = torch.randn(V, P, C, generator=gen).to(dev)
         xy, valid = args[3].detach(), args[4]
-        if name.endswith("shifted"):   # the float path: scalar atomics
+        if name.endswith("shifted"):   # the element path: misaligned
             d_rgb, d_ray = shifted(d_rgb), shifted(d_ray)
-            outs = [shifted(torch.zeros(s, device=dev))
-                    for s in (shapes[0], shapes[1], shapes[1])]
-            got = eg.backward_launcher(*outs, xy, valid, d_rgb, d_ray)()
+
+            def run():
+                outs = [shifted(torch.zeros(s, device=dev))
+                        for s in (shapes[0], shapes[1], shapes[1])]
+                return eg.backward_launcher(*outs, xy, valid, d_rgb, d_ray)()
         else:
-            got = eg.epipolar_gather_backward(xy, valid, d_rgb, d_ray,
-                                              *shapes, need_imgs=True)
+            def run():
+                return eg.epipolar_gather_backward(xy, valid, d_rgb, d_ray,
+                                                   *shapes, need_imgs=True)
+        got = run()
+        again = run()
         torch.cuda.synchronize()
+        for g, a, what in zip(got[1:], again[1:],
+                              ("d_img_feats", "d_ray_feats")):
+            check(torch.equal(g, a), f"gather backward {what} {name}: two "
+                  f"launches differ (max {max_err(g, a)})")
         upstream[name] = (d_rgb, d_ray)
         want = eg.epipolar_gather_backward_plain(*shapes, xy, valid, d_rgb,
                                                  d_ray, True)
@@ -1618,7 +1634,49 @@ def check_gather_backward(dev, gen, planner, scene, train_args):
         log(f"epipolar_gather_backward {name}: max_abs_err {errs[name]:.3e} "
             f"vs the plain version on the card (atol {BWD_ATOL}, rtol "
             f"{BWD_RTOL}); on the CPU within {BWD_SUM_RTOL} of each cell's "
-            f"sum of |contributions|")
+            f"sum of |contributions|; two launches bit-equal")
+
+    # non-finite upstream values at invalid points (which the index leaves
+    # out): NaN in exactly the cells and channels the plain version's g * 0
+    # makes NaN, the other values as above
+    args = gather_inputs(gen, dev, 1000)
+    xy, valid = args[3], args[4]
+    shapes = (tuple(args[0].shape), tuple(args[1].shape))
+    d_rgb = torch.randn(VIEWS, 1000, 35, generator=gen).to(dev)
+    d_ray = torch.randn(VIEWS, 1000, 32, generator=gen).to(dev)
+    bad = (~valid).nonzero()[:4]
+    d_rgb[bad[:2, 0], bad[:2, 1], 7] = float("inf")
+    d_ray[bad[2:, 0], bad[2:, 1], 3] = float("nan")
+    got = eg.epipolar_gather_backward(xy, valid, d_rgb, d_ray, *shapes,
+                                      need_imgs=True)
+    want = eg.epipolar_gather_backward_plain(*shapes, xy, valid, d_rgb, d_ray,
+                                             True)
+    for g, w, what in zip(got[1:], want[1:], ("d_img_feats", "d_ray_feats")):
+        check(torch.equal(g.isnan(), w.isnan()) and bool(g.isnan().any()),
+              f"gather backward {what}: NaN cells differ from the plain "
+              f"version's with non-finite values at invalid points")
+        check(torch.allclose(g.nan_to_num(0.0), w.nan_to_num(0.0),
+                             atol=BWD_ATOL, rtol=BWD_RTOL),
+              f"gather backward {what}: non-finite case max err "
+              f"{max_err(g.nan_to_num(0.0), w.nan_to_num(0.0))}")
+    log(f"epipolar_gather_backward: inf and NaN upstream at 4 invalid points "
+        f"give NaN in the plain version's {int(got[1].isnan().sum())} + "
+        f"{int(got[2].isnan().sum())} map values, and nowhere else")
+
+    # CUDA launches (kernels and memsets) of one bare call, as the profiler
+    # sees them, against what the library says it launches
+    args = cases[vol]
+    d_rgb, d_ray = upstream[vol]
+    outs = [torch.empty(s, device=dev) for s in
+            (tuple(args[0].shape), tuple(args[1].shape), tuple(args[1].shape))]
+    names = device_events(eg.backward_launcher(
+        *outs, args[3].detach(), args[4], d_rgb, d_ray, False))
+    per_call = eg.backward_cuda_launches()
+    check(len(names) == per_call <= 4, f"gather backward: {len(names)} CUDA "
+          f"launches a call ({names}), the library says {per_call}")
+    info = eg.backward_kernel_info()
+    log(f"epipolar_gather_backward: {len(names)} CUDA launches a call "
+        f"({', '.join(names)}); kernels as built {json.dumps(info)}")
 
     times = {}
     for name in (vol, planned, trained, spread):
@@ -1639,7 +1697,7 @@ def check_gather_backward(dev, gen, planner, scene, train_args):
         # (7 multiplies) and four adds into the map
         flops = V * P * 2 * C * 11
         # the same launch on one-float-shifted gradients and outputs: the
-        # kernel's scalar atomics, one per tap and channel
+        # pull's element stores
         scalar = eg.backward_launcher(
             *[shifted(o) for o in outs], xy, valid, shifted(d_rgb),
             shifted(d_ray), False)
@@ -1654,10 +1712,10 @@ def check_gather_backward(dev, gen, planner, scene, train_args):
             "library_ms": cuda_time(gather_backward_library(
                 args, (d_rgb, d_ray))),
             **bound(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)}
-        log(f"epipolar_gather_backward {name} (ms: the wrapper, zeroed "
-            f"outputs included; kernel_ms: the bare launch; "
-            f"scalar_kernel_ms: the bare launch on shifted tensors, scalar "
-            f"atomics): " + json.dumps(times[name]))
+        log(f"epipolar_gather_backward {name} (ms: the wrapper, its "
+            f"allocations included; kernel_ms: the bare launch, all "
+            f"{per_call} CUDA launches; scalar_kernel_ms: the bare launch "
+            f"on shifted tensors, element stores): " + json.dumps(times[name]))
     return {"name": "epipolar_gather_backward", "route": "cuda",
             "source": "graspnerf_tpu_torch/csrc/epipolar_gather.cu",
             "replaces": "graspnerf_tpu/ops/fused_gather.py:260",
@@ -1672,7 +1730,23 @@ def check_gather_backward(dev, gen, planner, scene, train_args):
             "train_max_abs_err": errs[trained],
             "train_random_kernel_ms": times[spread]["kernel_ms"],
             "planner_scalar_kernel_ms": times[planned]["scalar_kernel_ms"],
-            "train_scalar_kernel_ms": times[trained]["scalar_kernel_ms"]}
+            "train_scalar_kernel_ms": times[trained]["scalar_kernel_ms"],
+            "cuda_launches_per_call": len(names), "deterministic": True,
+            **info}
+
+
+def device_events(fn):
+    """Names of the device events (kernels, memsets, copies) of one call of
+    fn, after a warm-up call, as torch.profiler records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
 
 
 def event_ms(fn, iters):

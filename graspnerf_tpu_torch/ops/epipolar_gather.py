@@ -15,9 +15,12 @@ the concatenation the aggregator feeds to the view fuse
 Gradients: on CUDA tensors the wrapper is an autograd Function whose
 backward launches the kernel's transpose (`epipolar_gather_backward`, the
 port of `_feg_bwd`, fused_gather.py:260-270): the maps' gradients, and the
-RGB image's only when `imgs` requires one. The gradient with respect to `xy`
-is not ported (ROADMAP Queue 2): no path needs it, and the wrapper raises if
-xy requires one. On CPU tensors autograd differentiates the plain version,
+RGB image's only when `imgs` requires one. It pulls rather than scatters:
+points are indexed by the map tiles their taps reach, then each map cell
+sums its contributions in a fixed order and is written once, so the
+gradients are deterministic (csrc/epipolar_gather.cu). The gradient with
+respect to `xy` is not ported (ROADMAP Queue 2): no path needs it, and the
+wrapper raises if xy requires one. On CPU tensors autograd differentiates the plain version,
 which is also the backward's plain version
 (`epipolar_gather_backward_plain`).
 
@@ -64,13 +67,21 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.load("epipolar_gather")
-        for name in ("epipolar_gather_forward", "epipolar_gather_forward_bf16",
-                     "epipolar_gather_backward"):
+        for name in ("epipolar_gather_forward", "epipolar_gather_forward_bf16"):
             getattr(lib, name).argtypes = (
                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             getattr(lib, name).restype = ctypes.c_int
-        lib.epipolar_gather_points_per_block.argtypes = []
-        lib.epipolar_gather_points_per_block.restype = ctypes.c_int
+        lib.epipolar_gather_backward.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.epipolar_gather_backward.restype = ctypes.c_int
+        lib.epipolar_gather_backward_scratch.argtypes = [ctypes.c_int] * 4
+        lib.epipolar_gather_backward_scratch.restype = ctypes.c_longlong
+        lib.epipolar_gather_backward_info.argtypes = [ctypes.c_void_p]
+        lib.epipolar_gather_backward_info.restype = ctypes.c_int
+        for name in ("epipolar_gather_points_per_block",
+                     "epipolar_gather_backward_launches"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -148,29 +159,59 @@ def _launch(imgs, img_feats, ray_feats, xy, valid):
 def backward_launcher(d_imgs, d_img_feats, d_ray_feats, xy, valid, d_rgb,
                       d_ray, write_imgs: bool = True):
     """Check the CUDA tensors once (as `_check` does the forward's: the
-    gradients have the shapes of the maps and outputs they belong to) and
-    return a call that launches the backward kernel, adding into d_imgs
-    [V,H,W,3] (only if write_imgs), d_img_feats and d_ray_feats
-    [V,fh,fw,C]. Each call counts one launch of `epipolar_gather_backward`."""
+    gradients have the shapes of the maps and outputs they belong to),
+    allocate the index's scratch, and return a call that launches the
+    backward: it writes every cell of d_img_feats and d_ray_feats
+    [V,fh,fw,C] and, only if write_imgs, adds into d_imgs [V,H,W,3]. Each
+    call counts one launch of `epipolar_gather_backward` (a memset and three
+    kernels on the card, `backward_cuda_launches`)."""
     _check(d_imgs, d_img_feats, d_ray_feats, xy, valid, d_rgb, d_ray, (F32,))
     V, H, W, _ = d_imgs.shape
     _, fh, fw, C = d_img_feats.shape
+    P = xy.shape[1]
+    lib = library()
+    ints = lib.epipolar_gather_backward_scratch(V, P, fh, fw)
+    if ints < 0:
+        raise ValueError(f"gather backward: a {fh} x {fw} map has more tiles "
+                         f"than the index takes")
+    scratch = torch.empty(ints, dtype=torch.int32, device=xy.device)
     args = ([xy.data_ptr(), valid.data_ptr(), d_rgb.data_ptr(),
              d_ray.data_ptr(), d_imgs.data_ptr() if write_imgs else None,
-             d_img_feats.data_ptr(), d_ray_feats.data_ptr()]
-            + [V, xy.shape[1], H, W, fh, fw, C])
-    fn = library().epipolar_gather_backward
+             d_img_feats.data_ptr(), d_ray_feats.data_ptr(),
+             scratch.data_ptr()] + [V, P, H, W, fh, fw, C])
+    fn = lib.epipolar_gather_backward
     device = xy.device
-    keep = (d_imgs, d_img_feats, d_ray_feats, xy, valid, d_rgb, d_ray)
+    keep = (d_imgs, d_img_feats, d_ray_feats, xy, valid, d_rgb, d_ray, scratch)
 
     def launch():
         with torch.cuda.device(device):
             status = fn(*args, torch.cuda.current_stream().cuda_stream)
         build.check(status, "epipolar_gather_backward")
         epipolar_gather_backward.launches += 1
-        return keep[:3]   # the closure keeps all seven alive
+        return keep[:3]   # the closure keeps all eight alive
 
     return launch
+
+
+def backward_cuda_launches() -> int:
+    """CUDA launches (memsets included) of one backward call without
+    d_imgs, as built."""
+    return library().epipolar_gather_backward_launches()
+
+
+def backward_kernel_info() -> dict:
+    """The backward's kernels as built, on the current card: registers,
+    spilled (local) bytes and static shared memory a thread block of the
+    count, fill and pull kernels; the pull's dynamic shared memory and
+    resident blocks per SM."""
+    out = (ctypes.c_int * 11)()
+    build.check(library().epipolar_gather_backward_info(out),
+                "epipolar_gather_backward_info")
+    info = {f"{k}_{f}": out[3 * i + j]
+            for i, k in enumerate(("count", "fill", "pull"))
+            for j, f in enumerate(("registers", "spill_bytes", "static_smem"))}
+    info.update(pull_dynamic_smem=out[9], pull_blocks_per_sm=out[10])
+    return info
 
 
 def epipolar_gather_backward_plain(imgs_shape, maps_shape, xy, valid, d_rgb,
@@ -200,11 +241,12 @@ def epipolar_gather_backward(xy, valid, d_rgb, d_ray, imgs_shape, maps_shape,
     if xy.device.type != "cuda":
         raise ValueError(f"no gather backward for device {xy.device}")
     f = dict(dtype=torch.float32, device=xy.device)
-    # d_imgs only when asked for; otherwise an unwritten stand-in that
-    # gives the kernel its H and W
+    # d_imgs only when asked for (added into); otherwise an unwritten
+    # stand-in that gives the kernel its H and W. The kernel writes every
+    # cell of the maps' gradients.
     d_imgs = (torch.zeros if need_imgs else torch.empty)(imgs_shape, **f)
-    d_img_feats = torch.zeros(maps_shape, **f)
-    d_ray_feats = torch.zeros(maps_shape, **f)
+    d_img_feats = torch.empty(maps_shape, **f)
+    d_ray_feats = torch.empty(maps_shape, **f)
     backward_launcher(d_imgs, d_img_feats, d_ray_feats, xy, valid,
                       d_rgb.contiguous(), d_ray.contiguous(), need_imgs)()
     return (d_imgs if need_imgs else None, d_img_feats, d_ray_feats)

@@ -51,6 +51,22 @@ def volume_coords(poses: torch.Tensor, Ks: torch.Tensor, height: int,
     return xy.contiguous(), valid
 
 
+def train_coords(batch, samples: int = 40):
+    """(xy [V,P,2], valid [V,P]) of a training batch's coarse pass (P =
+    rays x samples): its query rays at `sample_depth`'s evenly spaced
+    inverse depths, projected into the reference views, in the order
+    `project_to_views` gathers them."""
+    que, ref = batch["data"]["que"], batch["data"]["ref"]
+    depth = geometry.sample_depth(que["depth_range"], que["coords"].shape[1],
+                                  samples)
+    pts, _ = geometry.depth2points(que["coords"], que["poses"], que["Ks"],
+                                   depth)
+    _, height, width, _ = ref["imgs"].shape
+    xy, _, valid = geometry.project_points(pts.reshape(-1, 3), ref["poses"],
+                                           ref["Ks"], height, width)
+    return xy.contiguous(), valid
+
+
 def query_rays(rng: np.random.RandomState, images, poses, Ks, depth_range,
                n_rays: int = 4096, view: int = 0):
     """The renderer's `que` dict (float32 numpy): n_rays random pixels of
