@@ -1,5 +1,5 @@
-// Epipolar feature gather, forward (sm_90a, float32 and bfloat16) and
-// backward (float32; its upstream type a template parameter of the pull).
+// Epipolar feature gather, forward and backward (sm_90a, float32 and
+// bfloat16).
 //
 // Forward. Replaces: graspnerf_tpu/ops/fused_gather.py `fused_epipolar_gather`
 // (:232-252) with `pack_feature_maps` (:43-64), whose values equal three
@@ -36,9 +36,11 @@
 // is bit-equal to the plain version.
 // bfloat16 instance (epipolar_gather_forward_bf16): the maps
 // (`pack_feature_maps(dtype)`, fused_gather.py:43-64) are read in bfloat16,
-// exactly widened to float32, weighed and blended as above; both outputs are
-// written rounded to the nearest bfloat16, as the plain version rounds
-// them. Its vector path reads and writes 8 bytes (four channels) at a time.
+// exactly widened to float32, weighed and blended as above; rgb_feats is
+// written rounded to the nearest bfloat16, as the plain version rounds it,
+// ray_feats in float32, the blend itself, as JAX's gather returns it
+// (fused_gather.py:178-180). Its vector path reads 8 bytes (four channels)
+// at a time.
 //
 // Backward. Replaces: `_feg_bwd` (graspnerf_tpu/ops/fused_gather.py:260-270)
 // with `_splat_windows` (:183-229), the transpose of the forward with respect
@@ -86,6 +88,16 @@
 // upstream rows are read about 1.2 times (a point whose taps cross a tile
 // edge is in two or four lists). d_imgs (no path asks for it) keeps scalar
 // atomicAdds into a zeroed tensor, in the count pass.
+// bfloat16 instance (epipolar_gather_backward_bf16): `_feg_bwd` on maps
+// that `pack_feature_maps(..., bfloat16)` packed. The index is the same; d_rgb
+// is read in bfloat16 and d_ray in float32 (the ray features' two consumers
+// add their gradients in float32, as JAX's float32 gather output does); each
+// point adds to a cell, once, its upstream value times the cell's folded
+// tap weight rounded to bfloat16 (`pull_entry_bf16`), the cell sums those
+// in float32 and is written once, rounded to bfloat16. A flagged view's NaNs
+// cover each such point's whole 2 x 2 window, as JAX's zero weights times
+// g * 0 do. d_imgs: `splat_bf16`, each contribution rounded before its
+// float32 atomic add, the map rounded once by the wrapper.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -191,6 +203,10 @@ template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
+// x rounded to the nearest bf16, as float
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 // four consecutive elements, 16 (float) or 8 (bf16) bytes, aligned
 __device__ __forceinline__ float4 load4(const float* p) { return ld4(p); }
 __device__ __forceinline__ float4 load4(const bf16* p) {
@@ -229,8 +245,9 @@ __device__ __forceinline__ float sample1(const T* __restrict__ map,
                to_f(__ldg(t + q.dy + q.dx)), q);
 }
 
-// T: float, or bf16 for the bfloat16 instance (maps and outputs in it; the
-// coordinates, taps, weights and blends float32 all the same)
+// T: float, or bf16 for the bfloat16 instance (maps and rgb_out in it; the
+// coordinates, taps, weights and blends float32 all the same); ray_out
+// float32 in both
 template <bool kVec, typename T>
 __global__ void __launch_bounds__(kThreads)
 gather_kernel(const T* __restrict__ imgs,
@@ -238,7 +255,7 @@ gather_kernel(const T* __restrict__ imgs,
               const T* __restrict__ ray_feats,
               const float* __restrict__ xy,
               const unsigned char* __restrict__ valid,
-              T* __restrict__ rgb_out, T* __restrict__ ray_out,
+              T* __restrict__ rgb_out, float* __restrict__ ray_out,
               int P, int H, int W, int fh, int fw, int C) {
   constexpr int E = 16 / sizeof(T);   // elements per 16 bytes
   __shared__ Point pts[kPoints], rgbs[kPoints];
@@ -293,7 +310,7 @@ gather_kernel(const T* __restrict__ imgs,
     if (l < 3) row[l] = from_f<T>(blend(r0, s0, r1, s1, g));
     if (c >= C) continue;
     const Point q = pts[i];
-    T* ray = ray_out + (p0 + i) * C;
+    float* ray = ray_out + (p0 + i) * C;
     if constexpr (kVec) {
       const float4 f = sample4(img_feats, q, c);
       row[3 + c] = from_f<T>(f.x);
@@ -304,7 +321,7 @@ gather_kernel(const T* __restrict__ imgs,
     } else {
       for (int j = c; j < min(c + 4, C); ++j) {
         row[3 + j] = from_f<T>(sample1(img_feats, q, j));
-        ray[j] = from_f<T>(sample1(ray_feats, q, j));
+        ray[j] = sample1(ray_feats, q, j);
       }
     }
   }
@@ -435,6 +452,42 @@ __device__ __forceinline__ void splat(float* __restrict__ map, const Point& q,
   atomicAdd(t + q.dy + q.dx, bot * q.wx);
 }
 
+// The bfloat16 instance's image gradient (`_feg_bwd`'s RGB channels of
+// d_packed, fused_gather.py:159-177): for each full-res pixel of the point's
+// 8 x 8 window (origin (wy, wx), the quarter-res window's anchor times 4),
+// (g*m x its row weight) x its column weight, each row or column weight the
+// sum of the taps landing on it (`_interp_from_win`'s 8-slot weights),
+// rounded to bfloat16 and added (scalar atomics) into the float32 map that
+// the wrapper rounds once. Pixels no tap reaches add 0 and are skipped,
+// unless g*m is not finite: then every pixel of the window gets its
+// product, NaN where the weight is 0, as in JAX.
+__device__ __forceinline__ void splat_bf16(float* __restrict__ map,
+                                           const Point& q, float g, int W,
+                                           int wy, int wx) {
+  const float a = g * q.m;
+  if (a == 0.0f) return;
+  const int x0 = q.o00 / 3 % W, y0 = q.o00 / 3 / W;
+  const int x1 = x0 + (q.dx != 0), y1 = y0 + (q.dy != 0);
+  if (isfinite(a)) {
+    const float r[2] = {q.dy ? q.owy : q.owy + q.wy, q.wy};
+    const float c[2] = {q.dx ? q.owx : q.owx + q.wx, q.wx};
+    for (int i = 0; i <= (q.dy != 0); ++i)
+      for (int j = 0; j <= (q.dx != 0); ++j)
+        atomicAdd(map + 3 * ((y0 + i) * W + x0 + j),
+                  round_bf16(a * r[i] * c[j]));
+    return;
+  }
+  const int uy0 = min(max(y0 - wy, 0), 7), uy1 = min(max(y1 - wy, 0), 7);
+  const int ux0 = min(max(x0 - wx, 0), 7), ux1 = min(max(x1 - wx, 0), 7);
+  for (int i = 0; i < 8; ++i) {
+    const float rw = (uy0 == i ? q.owy : 0.0f) + (uy1 == i ? q.wy : 0.0f);
+    for (int j = 0; j < 8; ++j) {
+      const float cw = (ux0 == j ? q.owx : 0.0f) + (ux1 == j ? q.wx : 0.0f);
+      atomicAdd(map + 3 * ((wy + i) * W + wx + j), round_bf16(a * rw * cw));
+    }
+  }
+}
+
 // The index's scratch (int32), per view: the count pass's tickets and
 // non-finite flags (the memset's), then [chunk][tile] counts (offsets after
 // the scan), tile starts, the tiles in the order the pull takes them (tile,
@@ -471,41 +524,42 @@ Index index_layout(int* scratch, int V, int P, int fh, int fw) {
   return x;
 }
 
-// Whether two rows of n <= 32 floats are all finite (not inf, not NaN):
-// load() issues 16-byte loads of the blocks that hold them, finite() reads
-// them, so that other work can run while they are in flight.
+// Whether a row of n <= 32 elements of T (float or bf16) is all finite
+// (not inf, not NaN): load() issues 16-byte loads of the blocks that hold
+// it, finite() reads them, so that other work can run while they are in
+// flight.
+template <typename T>
 struct RowCheck {
-  uint4 u[2][9];
-  int skip[2];
+  static constexpr int kPer = 16 / sizeof(T);   // elements a block
+  uint4 u[9];
+  int skip;
 
-  __device__ __forceinline__ void load(const float* __restrict__ a,
-                                       const float* __restrict__ b, int n) {
-    const float* rows[2] = {a, b};
+  __device__ __forceinline__ void load(const T* __restrict__ row, int n) {
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(row);
+    const uint4* p = reinterpret_cast<const uint4*>(lo & ~uintptr_t{15});
+    skip = static_cast<int>(lo & 15) / static_cast<int>(sizeof(T));
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const uintptr_t lo = reinterpret_cast<uintptr_t>(rows[r]);
-      const uint4* p = reinterpret_cast<const uint4*>(lo & ~uintptr_t{15});
-      skip[r] = static_cast<int>(lo & 15) / 4;   // floats before the row
-#pragma unroll
-      for (int i = 0; i < 9; ++i)
-        u[r][i] = 4 * i < skip[r] + n ? __ldg(p + i) : make_uint4(0, 0, 0, 0);
-    }
+    for (int i = 0; i < 9; ++i)
+      u[i] = kPer * i < skip + n ? __ldg(p + i) : make_uint4(0, 0, 0, 0);
   }
 
   __device__ __forceinline__ bool finite(int n) const {
     bool bad = false;
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+    for (int i = 0; i < 9; ++i) {
+      const unsigned e[4] = {u[i].x, u[i].y, u[i].z, u[i].w};
 #pragma unroll
-      for (int i = 0; i < 9; ++i) {
-        const unsigned e[4] = {u[r][i].x, u[r][i].y, u[r][i].z, u[r][i].w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = 4 * i + j;
-          bad |= k >= skip[r] && k < skip[r] + n &&
-                 (e[j] & 0x7f800000u) == 0x7f800000u;
-        }
+      for (int j = 0; j < kPer; ++j) {
+        const int k = kPer * i + j;
+        unsigned x;   // the element's bits, its sign at bit 31
+        if constexpr (sizeof(T) == 4)
+          x = e[j];
+        else
+          x = e[j / 2] >> (16 * (j % 2)) << 16;
+        // the exponent bits all set: inf or NaN
+        bad |= k >= skip && k < skip + n && (x & 0x7f800000u) == 0x7f800000u;
       }
+    }
     return !bad;
   }
 };
@@ -528,12 +582,13 @@ struct RowCheck {
 // slot, lane) of the points, by index but for the slot. Invalid points are
 // in no list; the fill pass checks their upstream rows and flags the view
 // (flags) where one holds inf or NaN. The count pass also splats d_rgb's
-// RGB channels into d_imgs when it is not null.
-template <bool kFill>
+// RGB channels into d_imgs when it is not null. GI, GR: the upstream
+// gradients' types (d_rgb, d_ray).
+template <bool kFill, typename GI, typename GR>
 __global__ void __launch_bounds__(kIndexWarps * 32)
 index_kernel(const float* __restrict__ xy,
              const unsigned char* __restrict__ valid,
-             const float* __restrict__ d_rgb, const float* __restrict__ d_ray,
+             const GI* __restrict__ d_rgb, const GR* __restrict__ d_ray,
              float* __restrict__ d_imgs,
              Index x, int P, int H, int W, int fh, int fw, int C) {
   extern __shared__ int hists[];   // kIndexWarps x tiles
@@ -569,8 +624,12 @@ index_kernel(const float* __restrict__ xy,
     // upstream rows while the ranks run
     const bool out = kDropInvalid && pm[r] == 0.0f;
     const bool check = kFill && out && p < P;
-    RowCheck rows;
-    if (check) rows.load(d_rgb + vp * (3 + C) + 3, d_ray + vp * C, C);
+    RowCheck<GI> row_i;
+    RowCheck<GR> row_r;
+    if (check) {
+      row_i.load(d_rgb + vp * (3 + C) + 3, C);
+      row_r.load(d_ray + vp * C, C);
+    }
 #pragma unroll
     for (int s = 0; s < 4; ++s) keys[r][s] = -1;
     if (p < P) {
@@ -578,14 +637,22 @@ index_kernel(const float* __restrict__ xy,
       if (!out) tile_keys(anchor_of(n, pm[r], fh, fw), x.ntx, keys[r]);
       if (!kFill && d_imgs != nullptr) {
         const Point q = full_point(n, H, W, pm[r]);
-        for (int ch = 0; ch < 3; ++ch)
-          splat(d_imgs + static_cast<size_t>(v) * H * W * 3 + ch, q,
-                d_rgb[vp * (3 + C) + ch]);
+        float* map = d_imgs + static_cast<size_t>(v) * H * W * 3;
+        if constexpr (sizeof(GI) == 2) {   // the bfloat16 instance
+          const Anchor a = anchor_of(n, pm[r], fh, fw);
+          const int wy = 4 * min(a.y, fh - 2), wx = 4 * min(a.x, fw - 2);
+          for (int ch = 0; ch < 3; ++ch)
+            splat_bf16(map + ch, q, to_f(d_rgb[vp * (3 + C) + ch]), W, wy,
+                       wx);
+        } else {
+          for (int ch = 0; ch < 3; ++ch)
+            splat(map + ch, q, d_rgb[vp * (3 + C) + ch]);
+        }
       }
     }
 #pragma unroll
     for (int s = 0; s < 4; ++s) ranks[r][s] = warp_rank(hist, keys[r][s]);
-    if (check) nonfinite |= !rows.finite(C);
+    if (check) nonfinite |= !row_i.finite(C) || !row_r.finite(C);
   }
   if (__syncthreads_or(nonfinite) && threadIdx.x == 0) atomicOr(x.flags + v, 1);
   // per tile: the warps' counts become their offsets in the chunk (the
@@ -694,8 +761,9 @@ index_kernel(const float* __restrict__ xy,
 //      taps can reach its cells, in row-major order, each segment in list order, and adds each
 //      entry's contributions to the cells its taps land on (`pull_entry`).
 // So a cell sums chunk by chunk, its four anchor cells (y-1,x-1), (y-1,x),
-// (y,x-1), (y,x) in turn, each in list order: a fixed order. G is the
-// upstream gradients' type (float only, for now).
+// (y,x-1), (y,x) in turn, each in list order: a fixed order. GI and GR are
+// the upstream gradients' types (d_rgb, d_ray), O the maps' gradients'
+// (float, or bf16: the bfloat16 instance, `pull_entry_bf16`).
 // Adds an entry to the kWarpY x kWarpX cells a warp owns, from anchor (ar,
 // ac) of their (kWarpY + 1) x (kWarpX + 1) (constants once unrolled): the
 // cell kY rows below and kX columns right of the anchor gets, in `splat`'s
@@ -731,12 +799,43 @@ __device__ __forceinline__ void pull_entry(float ai[kWarpY][kWarpX],
   }
 }
 
-template <typename G>
+// The bfloat16 instance's `pull_entry`: `_feg_bwd` on bfloat16 maps. A
+// point adds to each cell its taps land on once, g*m times the cell's
+// folded weight (rw * cw: a row's weight is owy or wy, owy + wy where a
+// clamped border puts both row taps on it; the same for columns), rounded
+// to bfloat16 (the transpose of the maps' bfloat16 -> float32 promotion)
+// before the float32 sum, as `_interp_from_win` and `_splat_windows` do
+// (fused_gather.py:137-144, 214-229). Cells of a point's window that no
+// tap reaches (weight 0) add 0 and are skipped.
+__device__ __forceinline__ void pull_entry_bf16(float ai[kWarpY][kWarpX],
+                                                float ar[kWarpY][kWarpX],
+                                                int kAr, int kAc, float gi,
+                                                float gr, float4 q, int ddy,
+                                                int ddx) {
+  const float r0 = ddy ? q.w : q.w + q.z;   // owy (+ wy at a clamped border)
+  const float c0 = ddx ? q.y : q.y + q.x;   // owx (+ wx)
+#pragma unroll
+  for (int cy = 0; cy < kWarpY; ++cy) {
+    const int kY = cy + 1 - kAr;
+    if (kY < 0 || kY > ddy) continue;
+    const float rw = kY == 0 ? r0 : q.z;
+#pragma unroll
+    for (int cx = 0; cx < kWarpX; ++cx) {
+      const int kX = cx + 1 - kAc;
+      if (kX < 0 || kX > ddx) continue;
+      const float w = rw * (kX == 0 ? c0 : q.x);
+      ai[cy][cx] += round_bf16(gi * w);
+      ar[cy][cx] += round_bf16(gr * w);
+    }
+  }
+}
+
+template <typename GI, typename GR, typename O>
 __device__ __forceinline__ void pull_segment(
     float ai[kWarpY][kWarpX], float ar[kWarpY][kWarpX], int kAr, int kAc,
     const int* seg, const int* meta, const float4* wts, const int* src,
-    const float* rows, const int* pidx, const G* __restrict__ d_rgb,
-    const G* __restrict__ d_ray, int k, int C, int lane) {
+    const float* rows, const int* pidx, const GI* __restrict__ d_rgb,
+    const GR* __restrict__ d_ray, int k, int C, int lane) {
 #pragma unroll 4
   for (int j = seg[k]; j < seg[k + 1]; ++j) {
     const int mt = meta[j];
@@ -754,7 +853,11 @@ __device__ __forceinline__ void pull_segment(
       gi *= 0.0f;
       gr *= 0.0f;
     }
-    pull_entry(ai, ar, kAr, kAc, gi, gr, wts[j], mt >> 9 & 1, mt >> 8 & 1);
+    if constexpr (sizeof(O) == 2)
+      pull_entry_bf16(ai, ar, kAr, kAc, gi, gr, wts[j], mt >> 9 & 1,
+                      mt >> 8 & 1);
+    else
+      pull_entry(ai, ar, kAr, kAc, gi, gr, wts[j], mt >> 9 & 1, mt >> 8 & 1);
   }
 }
 
@@ -774,13 +877,13 @@ __device__ __forceinline__ void stage_wait() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 }
 
-template <bool kVec, typename G>
+template <bool kVec, typename GI, typename GR, typename O>
 __global__ void __launch_bounds__(kPullThreads, 1024 / kPullThreads)
 pull_kernel(const float* __restrict__ xy,
             const unsigned char* __restrict__ valid,
-            const G* __restrict__ d_rgb, const G* __restrict__ d_ray,
-            Index x, float* __restrict__ d_img_feats,
-            float* __restrict__ d_ray_feats, int P, int H, int W, int fh,
+            const GI* __restrict__ d_rgb, const GR* __restrict__ d_ray,
+            Index x, O* __restrict__ d_img_feats,
+            O* __restrict__ d_ray_feats, int P, int H, int W, int fh,
             int fw, int C) {
   extern __shared__ float4 smem[];
   float* rows = reinterpret_cast<float*>(smem);   // kChunk x kRow
@@ -905,8 +1008,9 @@ pull_kernel(const float* __restrict__ xy,
     for (int r = 0; r <= kWarpY; ++r)
 #pragma unroll
       for (int c = 0; c <= kWarpX; ++c)
-        pull_segment(ai, ar, r, c, seg, meta, wts, src, rows, pidx, d_rgb,
-                     d_ray, (by + r) * (kTileX + 1) + bx + c, C, lane);
+        pull_segment<GI, GR, O>(ai, ar, r, c, seg, meta, wts, src, rows,
+                                pidx, d_rgb, d_ray,
+                                (by + r) * (kTileX + 1) + bx + c, C, lane);
     __syncthreads();
     STAMP(4);
   }
@@ -922,14 +1026,21 @@ pull_kernel(const float* __restrict__ xy,
   // The NaN path, for a view where an invalid point has a non-finite
   // upstream value (its g * 0 is NaN): every cell that such a point's taps
   // reach gets NaN in those channels (bits set with atomicOr: any order
-  // gives the same bits).
+  // gives the same bits). In the bfloat16 instance, every cell of the
+  // point's 2 x 2 window (its anchor clipped to [0, fh-2] x [0, fw-2]), as
+  // `_feg_bwd` multiplies g * 0 by the zero weights too.
   if (kDropInvalid && x.flags[v]) {
     unsigned* nan_bits = reinterpret_cast<unsigned*>(hist);   // [2][cells]
     for (int i = t; i < 2 * kTileY * kTileX; i += kPullThreads) nan_bits[i] = 0;
     __syncthreads();
     for (int p = t; p < P; p += kPullThreads) {
       if (valid[p]) continue;
-      const Anchor a = anchor_of(normalised(xy, p, H, W), 0.0f, fh, fw);
+      Anchor a = anchor_of(normalised(xy, p, H, W), 0.0f, fh, fw);
+      if constexpr (sizeof(O) == 2) {   // the window
+        a.y = min(a.y, fh - 2);
+        a.x = min(a.x, fw - 2);
+        a.ddy = a.ddx = 1;
+      }
       unsigned bits[2] = {0u, 0u};
       bool read = false;
       for (int dy = 0; dy <= a.ddy; ++dy)
@@ -959,8 +1070,9 @@ pull_kernel(const float* __restrict__ xy,
           ar[cy][cx] = __int_as_float(0x7fffffff);
       }
   }
-  // each of the warp's cells once: float4 stores from lanes [0, C/4) (the
-  // four channels gathered by shuffles), else a float a lane
+  // each of the warp's cells once: four-channel stores (float4, or four
+  // bf16 in 8 bytes) from lanes [0, C/4) (the four channels gathered by
+  // shuffles), else one channel a lane
 #pragma unroll
   for (int cy = 0; cy < kWarpY; ++cy)
 #pragma unroll
@@ -983,8 +1095,8 @@ pull_kernel(const float* __restrict__ xy,
           store4(d_ray_feats + o + 4 * lane, gr4);
         }
       } else if (y < fh && xc < fw && lane < C) {
-        d_img_feats[o + lane] = ai[cy][cx];
-        d_ray_feats[o + lane] = ar[cy][cx];
+        d_img_feats[o + lane] = from_f<O>(ai[cy][cx]);
+        d_ray_feats[o + lane] = from_f<O>(ar[cy][cx]);
       }
     }
 }
@@ -996,19 +1108,18 @@ constexpr size_t kPullSmem =
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
-bool aligned16(const void* p) { return aligned(p, 16); }
 
 template <typename T>
 int forward(const T* imgs, const T* img_feats, const T* ray_feats,
             const float* xy, const unsigned char* valid, T* rgb_out,
-            T* ray_out, int V, int P, int H, int W, int fh, int fw, int C,
+            float* ray_out, int V, int P, int H, int W, int fh, int fw, int C,
             cudaStream_t stream) {
   if (V == 0 || P == 0) return 0;
   const dim3 grid((P + kPoints - 1) / kPoints, V);
   // vector reads and stores of four channels
   const size_t v4 = 4 * sizeof(T);
   const bool vec = C % 4 == 0 && aligned(img_feats, v4) &&
-                   aligned(ray_feats, v4) && aligned(ray_out, v4);
+                   aligned(ray_feats, v4) && aligned(ray_out, 16);
   if (vec)
     gather_kernel<true, T><<<grid, kThreads, 0, stream>>>(
         imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out, P, H, W, fh,
@@ -1035,38 +1146,41 @@ extern "C" int epipolar_gather_forward(
                  P, H, W, fh, fw, C, stream);
 }
 
-// The bfloat16 instance: bfloat16 maps and outputs (rounded to the nearest
-// from the float32 blend), the same coordinates and limits.
+// The bfloat16 instance: bfloat16 maps and rgb_out (rounded to the nearest
+// from the float32 blend), float32 ray_out (the blend), the same coordinates
+// and limits.
 extern "C" int epipolar_gather_forward_bf16(
     const bf16* imgs, const bf16* img_feats, const bf16* ray_feats,
     const float* xy, const unsigned char* valid, bf16* rgb_out,
-    bf16* ray_out, int V, int P, int H, int W, int fh, int fw, int C,
+    float* ray_out, int V, int P, int H, int W, int fh, int fw, int C,
     cudaStream_t stream) {
   return forward(imgs, img_feats, ray_feats, xy, valid, rgb_out, ray_out, V,
                  P, H, W, fh, fw, C, stream);
 }
 
-// Lets the backward's kernels use their dynamic shared memory above 48 KB,
-// once per device (a host call that costs more than a small launch).
+// Lets an instance of the backward's kernels use its dynamic shared memory
+// above 48 KB, once per device (a host call that costs more than a small
+// launch). GI, GR: the upstream gradients' types; O: the maps' gradients'.
+template <typename GI, typename GR, typename O>
 static cudaError_t allow_smem() {
   static unsigned long long done = 0;   // one bit per device ordinal
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || dev >= 64 || (done >> dev & 1)) return err;
   const int index_smem = static_cast<int>(sizeof(int)) * kIndexWarps * kMaxTiles;
-  err = cudaFuncSetAttribute(index_kernel<false>,
+  err = cudaFuncSetAttribute(index_kernel<false, GI, GR>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              index_smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(index_kernel<true>,
+    err = cudaFuncSetAttribute(index_kernel<true, GI, GR>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                index_smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(pull_kernel<true, float>,
+    err = cudaFuncSetAttribute(pull_kernel<true, GI, GR, O>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kPullSmem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(pull_kernel<false, float>,
+    err = cudaFuncSetAttribute(pull_kernel<false, GI, GR, O>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kPullSmem));
   if (err == cudaSuccess) done |= 1ULL << dev;
@@ -1087,9 +1201,51 @@ extern "C" long long epipolar_gather_backward_scratch(int V, int P, int fh,
 }
 
 // CUDA launches of one epipolar_gather_backward call without d_imgs (with
-// it: the same, the caller zeroes d_imgs).
+// it: the same, the caller zeroes d_imgs); the bfloat16 instance's too.
 extern "C" int epipolar_gather_backward_launches() {
   return static_cast<int>(kRunIndex) * 3 + static_cast<int>(kRunPull);
+}
+
+template <typename GI, typename GR, typename O>
+static int backward(const float* xy, const unsigned char* valid,
+                    const GI* d_rgb, const GR* d_ray, float* d_imgs,
+                    O* d_img_feats, O* d_ray_feats, int* scratch, int V, int P,
+                    int H, int W, int fh, int fw, int C, cudaStream_t stream) {
+  if (V == 0) return 0;
+  const Index x = index_layout(scratch, V, P, fh, fw);
+  if (x.tiles > kMaxTiles) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSuccess;
+  if (P == 0) {   // no point: both maps' gradients are 0
+    const size_t bytes = sizeof(O) * V * fh * fw * C;
+    err = cudaMemsetAsync(d_img_feats, 0, bytes, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(d_ray_feats, 0, bytes, stream);
+    return static_cast<int>(err);
+  }
+  err = allow_smem<GI, GR, O>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (kRunIndex) {
+    const dim3 grid(x.chunks, V);
+    const size_t smem = sizeof(int) * kIndexWarps * x.tiles;
+    err = cudaMemsetAsync(x.tickets, 0, sizeof(int) * 2 * V, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    index_kernel<false, GI, GR><<<grid, kIndexWarps * 32, smem, stream>>>(
+        xy, valid, d_rgb, d_ray, d_imgs, x, P, H, W, fh, fw, C);
+    index_kernel<true, GI, GR><<<grid, kIndexWarps * 32, smem, stream>>>(
+        xy, valid, d_rgb, d_ray, nullptr, x, P, H, W, fh, fw, C);
+  }
+  if (kRunPull) {
+    const dim3 grid(V, x.tiles);   // the views' longest lists first
+    // stores of four channels
+    const size_t v4 = 4 * sizeof(O);
+    const bool vec = C % 4 == 0 && aligned(d_img_feats, v4) &&
+                     aligned(d_ray_feats, v4);
+    const auto kernel = vec ? pull_kernel<true, GI, GR, O>
+                            : pull_kernel<false, GI, GR, O>;
+    kernel<<<grid, kPullThreads, kPullSmem, stream>>>(
+        xy, valid, d_rgb, d_ray, x, d_img_feats, d_ray_feats, P, H, W, fh, fw,
+        C);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The transpose of epipolar_gather_forward with respect to the maps: writes
@@ -1102,57 +1258,43 @@ extern "C" int epipolar_gather_backward(
     const float* d_ray, float* d_imgs, float* d_img_feats, float* d_ray_feats,
     int* scratch, int V, int P, int H, int W, int fh, int fw, int C,
     cudaStream_t stream) {
-  if (V == 0) return 0;
-  const Index x = index_layout(scratch, V, P, fh, fw);
-  if (x.tiles > kMaxTiles) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSuccess;
-  if (P == 0) {   // no point: both maps' gradients are 0
-    const size_t bytes = sizeof(float) * V * fh * fw * C;
-    err = cudaMemsetAsync(d_img_feats, 0, bytes, stream);
-    if (err == cudaSuccess) err = cudaMemsetAsync(d_ray_feats, 0, bytes, stream);
-    return static_cast<int>(err);
-  }
-  err = allow_smem();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (kRunIndex) {
-    const dim3 grid(x.chunks, V);
-    const size_t smem = sizeof(int) * kIndexWarps * x.tiles;
-    err = cudaMemsetAsync(x.tickets, 0, sizeof(int) * 2 * V, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    index_kernel<false><<<grid, kIndexWarps * 32, smem, stream>>>(
-        xy, valid, d_rgb, d_ray, d_imgs, x, P, H, W, fh, fw, C);
-    index_kernel<true><<<grid, kIndexWarps * 32, smem, stream>>>(
-        xy, valid, d_rgb, d_ray, nullptr, x, P, H, W, fh, fw, C);
-  }
-  if (kRunPull) {
-    const dim3 grid(V, x.tiles);   // the views' longest lists first
-    // float4 stores of four channels
-    const bool vec = C % 4 == 0 && aligned16(d_img_feats) &&
-                     aligned16(d_ray_feats);
-    const auto kernel =
-        vec ? pull_kernel<true, float> : pull_kernel<false, float>;
-    kernel<<<grid, kPullThreads, kPullSmem, stream>>>(
-        xy, valid, d_rgb, d_ray, x, d_img_feats, d_ray_feats, P, H, W, fh, fw,
-        C);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return backward(xy, valid, d_rgb, d_ray, d_imgs, d_img_feats, d_ray_feats,
+                  scratch, V, P, H, W, fh, fw, C, stream);
 }
 
-// The backward's kernels as built, on the current card: for the count, the
-// fill and the pull kernel (vector path), registers a thread, spilled
-// (local) bytes a thread, static shared memory; then the pull's dynamic
-// shared memory and its resident blocks per SM.
-extern "C" int epipolar_gather_backward_info(int* out) {
+// The bfloat16 instance (`_feg_bwd` on bfloat16 maps): d_rgb in bfloat16,
+// d_ray in float32 (the float32 sum of its consumers' gradients), the maps'
+// gradients written in bfloat16, each cell the float32 sum of its points'
+// contributions rounded to bfloat16 (`pull_entry_bf16`), rounded once; the
+// image's contributions, rounded likewise, added into d_imgs (float32,
+// zeroed by the caller, who rounds it once) unless it is null
+// (`splat_bf16`). The same scratch and limits.
+extern "C" int epipolar_gather_backward_bf16(
+    const float* xy, const unsigned char* valid, const bf16* d_rgb,
+    const float* d_ray, float* d_imgs, bf16* d_img_feats, bf16* d_ray_feats,
+    int* scratch, int V, int P, int H, int W, int fh, int fw, int C,
+    cudaStream_t stream) {
+  return backward(xy, valid, d_rgb, d_ray, d_imgs, d_img_feats, d_ray_feats,
+                  scratch, V, P, H, W, fh, fw, C, stream);
+}
+
+// An instance of the backward's kernels as built, on the current card: for
+// the count, the fill and the pull kernel (vector path), registers a thread,
+// spilled (local) bytes a thread, static shared memory; then the pull's
+// dynamic shared memory and its resident blocks per SM.
+template <typename GI, typename GR, typename O>
+static int backward_info(int* out) {
   cudaFuncAttributes attr[3];
-  cudaError_t err = cudaFuncGetAttributes(&attr[0], index_kernel<false>);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr[1], index_kernel<true>);
+  cudaError_t err = cudaFuncGetAttributes(&attr[0], index_kernel<false, GI, GR>);
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr[2], pull_kernel<true, float>);
-  if (err == cudaSuccess) err = allow_smem();
+    err = cudaFuncGetAttributes(&attr[1], index_kernel<true, GI, GR>);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr[2], pull_kernel<true, GI, GR, O>);
+  if (err == cudaSuccess) err = allow_smem<GI, GR, O>();
   int per_sm = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pull_kernel<true, float>, kPullThreads, kPullSmem);
+        &per_sm, pull_kernel<true, GI, GR, O>, kPullThreads, kPullSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int i = 0; i < 3; ++i) {
     out[3 * i] = attr[i].numRegs;
@@ -1162,4 +1304,11 @@ extern "C" int epipolar_gather_backward_info(int* out) {
   out[9] = static_cast<int>(kPullSmem);
   out[10] = per_sm;
   return 0;
+}
+
+extern "C" int epipolar_gather_backward_info(int* out) {
+  return backward_info<float, float, float>(out);
+}
+extern "C" int epipolar_gather_backward_bf16_info(int* out) {
+  return backward_info<bf16, float, bf16>(out);
 }

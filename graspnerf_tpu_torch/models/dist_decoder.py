@@ -27,11 +27,14 @@ class MixtureLogisticsDistDecoder(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.bias_val = bias_val
+        self.dtype = dtype
         self.mean_decoder = _head(feats_dim, 2, dtype)
         self.var_decoder = _head(feats_dim, 2, dtype)
         self.aw_decoder = _head(feats_dim, 1, dtype)
 
     def forward(self, feats):
+        # cast once, as JAX does: the three heads' gradients add in `dtype`
+        feats = feats.to(self.dtype)
         mean = F.softplus(self.mean_decoder(feats).float())
         var = F.softplus(self.var_decoder(feats).float()) + self.bias_val
         aw = torch.sigmoid(self.aw_decoder(feats).float())
@@ -40,7 +43,7 @@ class MixtureLogisticsDistDecoder(nn.Module):
     def predict_mean(self, feats):
         """The mixture means alone, [...,2] (dist_decoder.py:55-58): the
         depth loss's prediction."""
-        return F.softplus(self.mean_decoder(feats).float())
+        return F.softplus(self.mean_decoder(feats.to(self.dtype)).float())
 
 
 def compute_prob(depth, mean, var, aw, depth_range, interval=None,

@@ -54,8 +54,13 @@ def project_to_views(ref: Dict[str, torch.Tensor], que_pts: torch.Tensor,
     dtype (`NeuralRayRenderer.gather_maps`). Returns [V,qn,rn,dn,C]
     tensors: dir(3), pts(2), depth(1), mask(1), ray_feats(32),
     rgb_feats(35) = rgb | img_feats (the JAX dict's `rgb` and `img_feats`,
-    already concatenated as the aggregator uses them); the last two in the
-    maps' dtype, the others float32."""
+    already concatenated as the aggregator uses them); rgb_feats in the
+    maps' dtype, the others float32. ray_feats is the float32 blend, as
+    JAX's gather returns it, so the bfloat16 gradients of its two consumers
+    (the dist decoder, renderer.py:146, and the prob embedding,
+    aggregator.py:95-96) add in float32, and the gather's backward reads
+    that sum. rgb_feats' consumers round it to bfloat16 once
+    (ibrnet.py:212), so its gradients add in bfloat16 in both."""
     qn, rn, dn, _ = que_pts.shape
     pts = que_pts.reshape(-1, 3)
     V, h, w, _ = ref["imgs"].shape

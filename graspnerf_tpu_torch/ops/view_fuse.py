@@ -2,10 +2,14 @@
 
 Replaces the Pallas kernel `_kernel` / `view_fuse`
 (graspnerf_tpu/ops/pallas/ibrnet_fuse.py:115-253); `view_fuse_plain` is the
-port of its jnp oracle `view_fuse_reference` (:52-98). On CUDA tensors
-`view_fuse` launches csrc/view_fuse.cu (float32) or csrc/view_fuse_bf16.cu
-(bfloat16); its backward recomputes through the plain version, as the JAX
-custom VJP does.
+port of its jnp oracle `view_fuse_reference` (:52-98) in float32 and of the
+kernel's arithmetic in bfloat16, `view_fuse_reference` the oracle's in
+both. On CUDA tensors `view_fuse` launches csrc/view_fuse.cu (float32) or
+csrc/view_fuse_bf16.cu (bfloat16). Its backward recomputes through
+`view_fuse_reference`, as the JAX custom VJP `_vf_bwd` (:245-250) does:
+in bfloat16 the oracle rounds every layer's output to bfloat16 (`_mm`,
+:45-49), where the forward rounds operands only; `view_fuse_plain` with a
+bfloat16 gradient takes the same split.
 
 Inputs are [V,N,C] with V = 6 views leading: rgbf [V,N,35] (rgb | image
 features), neur [V,N,32] (prob embedding), rdiff [V,N,4] (direction
@@ -81,10 +85,25 @@ def _weighted_mean_var(x, w):
     return mean, var
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def view_fuse_plain(rgbf, neur, rdiff, mask, weights: Sequence[Pair],
                     dtype=F32):
     """Plain PyTorch version: in float32 the port of `view_fuse_reference`,
-    in bfloat16 what the Pallas kernel computes (the module docstring)."""
+    in bfloat16 what the Pallas kernel computes (the module docstring). In
+    float32 autograd differentiates it; in bfloat16 with a gradient it is
+    `_ViewFuseFn` on this forward, whose backward recomputes through
+    `view_fuse_reference`, as `_vf_bwd` does."""
+    flat_w = [t for pair in weights for t in pair]
+    if dtype == BF16 and _needs_grad(rgbf, neur, rdiff, mask, *flat_w):
+        return _ViewFuseFn.apply(dtype, True, rgbf, neur, rdiff, mask,
+                                 *flat_w)
+    return _plain(rgbf, neur, rdiff, mask, weights, dtype)
+
+
+def _plain(rgbf, neur, rdiff, mask, weights: Sequence[Pair], dtype=F32):
     (wd0, wd1, wn0, wn1, wb0, wb1, wv0, wv1, wv20, wv21) = weights
     if dtype == F32:
         mm = F.linear
@@ -108,6 +127,49 @@ def view_fuse_plain(rgbf, neur, rdiff, mask, weights: Sequence[Pair],
     xv = F.elu(mm(F.elu(mm(x * weight, *wv0)), *wv1))
     x = x + xv[..., :C_X]
     vis = torch.sigmoid(xv[..., C_X:]) * mask
+    vis = torch.sigmoid(mm(F.elu(mm(x * vis, *wv20)), *wv21)) * mask
+
+    weight2 = vis / (torch.sum(vis, 0, keepdim=True) + 1e-8)
+    mean, var = _weighted_mean_var(x, weight2)
+    feat_const = torch.cat([mean, var, torch.mean(weight2, 0)], -1)
+    return (feat_const.to(dtype), torch.sum(mask, 0), x.to(dtype),
+            vis.to(dtype))
+
+
+def view_fuse_reference(rgbf, neur, rdiff, mask, weights: Sequence[Pair],
+                        dtype=F32):
+    """`view_fuse_reference` (ibrnet_fuse.py:52-98): in float32
+    `view_fuse_plain`; in bfloat16 the inputs rounded to it and each
+    layer's output rounded to bfloat16 after its float32 sum of products
+    of bfloat16 operands and its float32 bias, as `_mm` (:45-49) rounds
+    it; the elementwise ops between in float32, as XLA's fusions evaluate
+    the oracle's bfloat16 elementwise ops; feat_const, x and vis rounded on
+    output. The bfloat16 backward differentiates this."""
+    if dtype == F32:
+        return _plain(rgbf, neur, rdiff, mask, weights, dtype)
+    (wd0, wd1, wn0, wn1, wb0, wb1, wv0, wv1, wv20, wv21) = weights
+
+    def mm(x, w, b):
+        return (F.linear(x.to(dtype).float(), w.to(dtype).float())
+                + b.float()).to(dtype).float()
+
+    rgbf, neur, rdiff, mask = (t.to(dtype).float()
+                               for t in (rgbf, neur, rdiff, mask))
+    df = F.elu(mm(F.elu(mm(rdiff, *wd0)), *wd1))
+    rf = rgbf + df
+
+    weight = mask / (torch.sum(mask, 0, keepdim=True) + 1e-8)
+    w0 = torch.sigmoid(mm(F.elu(mm(neur, *wn0)), *wn1)) * weight
+    mean0, var0 = _weighted_mean_var(rf, w0)
+    mean1, var1 = _weighted_mean_var(rf, weight)
+    gf = torch.cat([mean0, var0, mean1, var1], -1)
+
+    V = rgbf.shape[0]
+    xin = torch.cat([gf[None].expand(V, -1, -1), rf, neur], -1)
+    x = F.elu(mm(F.elu(mm(xin, *wb0)), *wb1))
+    xv = F.elu(mm(F.elu(mm(x * weight, *wv0)), *wv1))
+    vis = torch.sigmoid(xv[..., C_X:]) * mask
+    x = x + xv[..., :C_X]
     vis = torch.sigmoid(mm(F.elu(mm(x * vis, *wv20)), *wv21)) * mask
 
     weight2 = vis / (torch.sum(vis, 0, keepdim=True) + 1e-8)
@@ -287,26 +349,29 @@ def _launch(rgbf, neur, rdiff, mask, weights: Sequence[Pair], dtype=F32):
 
 
 class _ViewFuseFn(torch.autograd.Function):
-    """Kernel forward; backward = autograd through the plain version
-    (recompute, as `_vf_bwd` in the JAX package)."""
+    """Forward: the kernel, or the plain version when `plain`; backward =
+    autograd through `view_fuse_reference` (recompute, as `_vf_bwd` in the
+    JAX package)."""
 
     @staticmethod
-    def forward(ctx, dtype, rgbf, neur, rdiff, mask, *flat_w):
+    def forward(ctx, dtype, plain, rgbf, neur, rdiff, mask, *flat_w):
         ctx.save_for_backward(rgbf, neur, rdiff, mask, *flat_w)
         ctx.dtype = dtype
         pairs = list(zip(flat_w[0::2], flat_w[1::2]))
+        if plain:
+            return _plain(rgbf, neur, rdiff, mask, pairs, dtype)
         return _launch(rgbf, neur, rdiff, mask, pairs, dtype)
 
     @staticmethod
     def backward(ctx, *grads):
         saved = ctx.saved_tensors
-        need = ctx.needs_input_grad[1:]
+        need = ctx.needs_input_grad[2:]
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
             flat_w = ins[4:]
-            outs = view_fuse_plain(*ins[:4],
-                                   list(zip(flat_w[0::2], flat_w[1::2])),
-                                   ctx.dtype)
+            outs = view_fuse_reference(*ins[:4],
+                                       list(zip(flat_w[0::2], flat_w[1::2])),
+                                       ctx.dtype)
             wrt = [t for t in ins if t.requires_grad]
             # num_valid = sum(mask) has no graph unless mask needs a grad
             live = [(o, torch.zeros_like(o) if g is None else g)
@@ -314,23 +379,21 @@ class _ViewFuseFn(torch.autograd.Function):
             gs = iter(torch.autograd.grad(
                 [o for o, _ in live], wrt, [g for _, g in live],
                 allow_unused=True))
-        return (None, *(next(gs) if n else None for n in need))
+        return (None, None, *(next(gs) if n else None for n in need))
 
 
 def view_fuse(rgbf, neur, rdiff, mask, weights: Sequence[Pair], dtype=F32):
     """View-fuse wrapper: the CUDA kernel on CUDA tensors (float32 or
     bfloat16, as `dtype` says), the plain version on CPU tensors. Same
-    arguments and results as `view_fuse_plain`."""
+    arguments, results and gradients as `view_fuse_plain`."""
     if rgbf.device.type == "cpu":
         return view_fuse_plain(rgbf, neur, rdiff, mask, weights, dtype)
     if rgbf.device.type != "cuda":
         raise ValueError(f"no view fuse for device {rgbf.device}")
     flat_w = [t for pair in weights for t in pair]
-    if not (torch.is_grad_enabled()
-            and any(t.requires_grad for t in (rgbf, neur, rdiff, mask,
-                                              *flat_w))):
+    if not _needs_grad(rgbf, neur, rdiff, mask, *flat_w):
         return _launch(rgbf, neur, rdiff, mask, weights, dtype)
-    return _ViewFuseFn.apply(dtype, rgbf, neur, rdiff, mask, *flat_w)
+    return _ViewFuseFn.apply(dtype, False, rgbf, neur, rdiff, mask, *flat_w)
 
 
 # launches of the kernel, of both dtypes; and of its bfloat16 instance

@@ -6,6 +6,7 @@ from . import losses, metrics
 from .checkpoint import CheckpointManager, load_params
 from .profiling import ThroughputMeter, rays_per_step, timed, trace
 from .schedule import exp_decay_lr, warmup_exp_decay_lr
-from .trainer import (Trainer, TrainState, apply_gradients, compute_losses,
-                      create_train_state, gradients, make_batched_loss_fn,
-                      make_eval_step, make_loss_fn, make_train_step)
+from .trainer import (Trainer, TrainState, apply_gradients, check_trainable,
+                      compute_losses, create_train_state, gradients,
+                      make_batched_loss_fn, make_eval_step, make_loss_fn,
+                      make_train_step)

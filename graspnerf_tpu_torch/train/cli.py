@@ -53,8 +53,8 @@ def parser() -> argparse.ArgumentParser:
                    help="data worker processes (0 = in this process)")
     p.add_argument("--compute-dtype", default=None,
                    choices=["float32", "bfloat16"],
-                   help="float32 only: the port trains in float32 "
-                        "(bfloat16 runs inference)")
+                   help="the model's compute dtype (parameters, Adam and "
+                        "the losses stay float32)")
     p.add_argument("--device", default=None,
                    help="torch device; the card by default, 'cpu' for the "
                         "CPU")

@@ -131,19 +131,24 @@ def apply_gradients(state: TrainState, grads: List[torch.Tensor]) -> bool:
     return finite
 
 
+TRAINABLE_DTYPES = ("float32", "bfloat16")
+
+
 def check_trainable(compute_dtype: str) -> None:
-    """Raise unless the port can train in `compute_dtype`: float32 only."""
-    if compute_dtype != "float32":
+    """Raise unless the port can train in `compute_dtype`: float32 or
+    bfloat16 (scripts/train.py --compute-dtype)."""
+    if compute_dtype not in TRAINABLE_DTYPES:
         raise NotImplementedError(
-            f"compute_dtype {compute_dtype!r}: the port trains in float32 "
-            "only; the bfloat16 train step, with the gather's bfloat16 "
-            "backward, is ROADMAP Queue 1 item 1 (bfloat16 runs inference)")
+            f"compute_dtype {compute_dtype!r}: the port trains in "
+            f"{' or '.join(TRAINABLE_DTYPES)}")
 
 
 def make_train_step(state: TrainState) -> Callable:
     """step(batch, generator) -> metrics: every key of compute_losses,
     "total" and "nonfinite_grad" (1.0 when the update was skipped), as
-    detached 0-d tensors. Float32 models only (`check_trainable`)."""
+    detached 0-d tensors. In bfloat16 the model computes in bfloat16 while
+    the parameters, their gradients, Adam's state and the losses stay
+    float32, as in JAX (`check_trainable`)."""
     check_trainable(state.model.nr_net.compute_dtype)
     loss_fn = make_loss_fn(state.model)
 

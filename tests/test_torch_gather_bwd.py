@@ -36,6 +36,23 @@ map cell run in another order than autograd's and XLA's. Against JAX also
 card): where many border-clamped points pile onto one cell (sums up to ~6
 here) the plain version itself differs from JAX's VJP by up to 1.3e-5,
 and the model by 1e-6 from the plain version.
+
+bfloat16 maps (`_feg_bwd` on `pack_feature_maps(..., bfloat16)`): each
+point's contribution to a cell is its upstream value times the cell's
+folded tap weight, rounded to bfloat16; a cell sums them in float32 and is
+rounded once. The plain bfloat16 backward, the model of the kernel's
+bfloat16 instance and JAX's VJP are held to each other bit for bit, but
+for at most BF16_ULP_SHARE of the values, which may differ by one
+bfloat16 ulp of the cell's sum of |contributions| where a float32 sum of
+bfloat16 values runs in another order, and against JAX by two: XLA's CPU
+backend divides by the constant extent (w - 1) through its reciprocal,
+the port and the kernel in IEEE division, so some coordinates differ by a
+float32 ulp; 1 - w turns that into a larger relative error of a small tap
+weight, and now and then a contribution rounds to the neighbouring
+bfloat16 value, one of them in a higher binade than the cell's sum (2
+ulps measured on the ragged layout). Upstream: d_rgb bfloat16-valued (the
+gather's bfloat16 output), d_ray float32 (the ray features' two consumers
+add their gradients in float32).
 """
 import pathlib
 import re
@@ -63,6 +80,7 @@ CHUNK = _const("kChunk")
 V, H, W, C, P = 2, 64, 96, 8, 333
 FH, FW = H // 4, W // 4
 F32 = np.float32
+BF16_ULP_SHARE, JAX_ULPS = 5e-3, 2
 
 
 @pytest.fixture(autouse=True)
@@ -132,8 +150,32 @@ def pull_add(acc, g, a, p, kY, kX):
                 acc += r * a["wx"][p]
 
 
-def model_backward(xy, valid, d_rgb, d_ray, chunk=CHUNK):
-    """(d_img_feats, d_ray_feats) [V,FH,FW,C] as the kernel computes them."""
+def bf16(x):
+    """float32 values rounded to the nearest bfloat16, as float32."""
+    return torch.from_numpy(np.asarray(x, F32)).to(torch.bfloat16).float(
+        ).numpy()
+
+
+def pull_add_bf16(acc, g, a, p, kY, kX):
+    """`pull_entry_bf16`: one entry's contribution to a cell its taps land
+    on, g*m times the cell's folded weight, rounded to bfloat16."""
+    dy, dx = a["dy"][p], a["dx"][p]
+    if kY > dy or kX > dx:
+        return
+    rw = (a["owy"][p] if dy else a["owy"][p] + a["wy"][p]) if kY == 0 \
+        else a["wy"][p]
+    cw = (a["owx"][p] if dx else a["owx"][p] + a["wx"][p]) if kX == 0 \
+        else a["wx"][p]
+    with np.errstate(invalid="ignore"):
+        acc += bf16(g * a["m"][p] * (rw * cw))
+
+
+def model_backward(xy, valid, d_rgb, d_ray, chunk=CHUNK, dtype="float32"):
+    """(d_img_feats, d_ray_feats) [V,FH,FW,C] as the kernel computes them;
+    dtype "bfloat16": as its bfloat16 instance does, rounded to bfloat16
+    (an invalid point with a non-finite upstream value makes its whole
+    window NaN in that channel)."""
+    add = pull_add_bf16 if dtype == "bfloat16" else pull_add
     out = np.full((2, V, FH, FW, C), np.nan, F32)
     for v in range(V):
         a = anchors(xy[v], valid[v])
@@ -160,11 +202,19 @@ def model_backward(xy, valid, d_rgb, d_ray, chunk=CHUNK):
                                 k = (ly + s // 2) * (TILE_X + 1) + lx + s % 2
                                 for p in seg.get(k, ()):
                                     for m in range(2):
-                                        pull_add(acc[m, ly, lx], rows[m][p],
-                                                 a, p, kY, kX)
+                                        add(acc[m, ly, lx], rows[m][p],
+                                            a, p, kY, kX)
                 hy, hx = min(TILE_Y, FH - ty0), min(TILE_X, FW - tx0)
                 out[:, v, ty0:ty0 + hy, tx0:tx0 + hx] = acc[:, :hy, :hx]
+        if dtype == "bfloat16":   # the NaN path's windows
+            for p in np.flatnonzero(a["m"] == 0):
+                y0, x0 = min(a["y"][p], FH - 2), min(a["x"][p], FW - 2)
+                for m in range(2):
+                    bad = ~np.isfinite(rows[m][p])
+                    out[m, v, y0:y0 + 2, x0:x0 + 2, bad] = np.nan
     assert not np.isnan(out).all(axis=-1).any()   # every cell written
+    if dtype == "bfloat16":
+        out = bf16(out)
     return out[0], out[1]
 
 
@@ -208,17 +258,42 @@ def layout(name, rng):
 LAYOUTS = ("random", "one_cell", "z_column", "border", "invalid", "ragged")
 
 
-@pytest.fixture(scope="module")
-def jax_vjp():
-    """JAX's VJP of the fused gather with respect to the three maps, jitted
-    once for the layouts' common shape."""
+def _jax_vjp(dtype, h=H, w=W):
+    """JAX's VJP of the fused gather with respect to the three maps, packed
+    in `dtype`, jitted (once for each shape): maps' gradients in float32."""
     def gather(a, b, c, xy, valid):
-        return fused_epipolar_gather(pack_feature_maps(a, b, c), xy,
-                                     valid.astype(jnp.float32), H, W)
+        return fused_epipolar_gather(pack_feature_maps(a, b, c, dtype), xy,
+                                     valid.astype(jnp.float32), h, w)
 
     def vjp(maps, xy, valid, cot):
         return jax.vjp(lambda *m: gather(*m, xy, valid), *maps)[1](cot)
     return jax.jit(vjp)
+
+
+@pytest.fixture(scope="module")
+def jax_vjp():
+    return _jax_vjp(jnp.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_vjp_bf16():
+    return _jax_vjp(jnp.bfloat16)
+
+
+def assert_bf16_equal(got, want, scale, what="", ulps=1):
+    """Bit for bit (NaN where the other is NaN), but for at most
+    BF16_ULP_SHARE of the values, within `ulps` bfloat16 ulps of `scale`
+    (each cell's sum of |contributions|) there."""
+    got, want = np.asarray(got, F32), np.asarray(want, F32)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want), what)
+    ok = ~np.isnan(want)
+    got, want, scale = got[ok], want[ok], np.asarray(scale, F32)[ok]
+    big = np.maximum(np.maximum(np.abs(got), np.abs(want)), scale)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(big, 1e-38))) - 7)
+    differ = got != want
+    assert (np.abs(got - want)[differ] <= ulps * ulp[differ]).all(), (
+        what, float((np.abs(got - want) / ulp).max()))
+    assert differ.mean() <= BF16_ULP_SHARE, (what, differ.mean())
 
 
 @pytest.mark.parametrize("name", LAYOUTS)
@@ -275,3 +350,133 @@ def test_pull_model_keeps_non_finite_upstream_like_plain():
         assert np.isnan(g).any()
         np.testing.assert_array_equal(np.isnan(g), np.isnan(w.numpy()))
         np.testing.assert_allclose(g, w.numpy(), atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------- bfloat16 maps
+def _bf16_upstream(rng, n=P, c=C):
+    """d_rgb [V,n,3+c] bfloat16-valued, d_ray [V,n,c] float32."""
+    return (bf16(rng.randn(V, n, 3 + c)),
+            rng.randn(V, n, c).astype(F32))
+
+
+def _plain_bf16(xy, valid, d_rgb, d_ray, h=H, w=W, c=C):
+    return EG.epipolar_gather_backward_plain(
+        (V, h, w, 3), (V, h // 4, w // 4, c), torch.from_numpy(xy),
+        torch.from_numpy(valid), torch.from_numpy(d_rgb).to(torch.bfloat16),
+        torch.from_numpy(d_ray), True, torch.bfloat16)
+
+
+def _want_bf16(jax_vjp_bf16, xy, valid, d_rgb, d_ray, h=H, w=W, c=C):
+    maps = (jnp.zeros((V, h, w, 3)), jnp.zeros((V, h // 4, w // 4, c)),
+            jnp.zeros((V, h // 4, w // 4, c)))
+    return [np.asarray(g) for g in jax_vjp_bf16(
+        maps, jnp.asarray(xy), jnp.asarray(valid),
+        (jnp.asarray(d_rgb[..., :3]), jnp.asarray(d_rgb[..., 3:]),
+         jnp.asarray(d_ray)))]
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_pull_model_bf16_matches_plain_and_jax_vjp(name, jax_vjp_bf16):
+    """The bfloat16 instance's algorithm (the model, at the kernel's chunk
+    and at a chunk of 16), the plain bfloat16 backward and JAX's VJP on
+    bfloat16-packed maps agree bit for bit (or one bfloat16 ulp where a
+    float32 sum runs in another order); the plain version's image
+    gradient (8-slot full-res weights) too."""
+    rng = np.random.RandomState(10 + LAYOUTS.index(name))
+    xy, valid = layout(name, rng)
+    d_rgb, d_ray = _bf16_upstream(rng)
+    plain, scale = ([t.float().numpy() for t in _plain_bf16(xy, valid, r, a)]
+                    for r, a in ((d_rgb, d_ray),
+                                 (np.abs(d_rgb), np.abs(d_ray))))
+    want = _want_bf16(jax_vjp_bf16, xy, valid, d_rgb, d_ray)
+    for p, w, a, what in zip(plain, want, scale,
+                             ("imgs", "img_feats", "ray_feats")):
+        assert_bf16_equal(p, w, a, f"plain {what}", JAX_ULPS)
+    for chunk in (CHUNK, 16):
+        got = model_backward(xy, valid, d_rgb, d_ray, chunk, "bfloat16")
+        for g, p, a, what in zip(got, plain[1:], scale[1:],
+                                 ("img_feats", "ray_feats")):
+            assert_bf16_equal(g, p, a, f"model {what} chunk {chunk}")
+
+
+def test_pull_model_bf16_non_finite_upstream_like_plain(jax_vjp_bf16):
+    """Non-finite upstream at invalid points on bfloat16 maps: in the model
+    and the plain version NaN in every cell of the point's window in that
+    channel (`_interp_from_win`'s VJP multiplies g * 0 by the window's zero
+    weights too), elsewhere as before. JAX's one-hot splat then spreads
+    each NaN to every cell of that view and channel (0 x NaN in the
+    product): its NaNs cover the port's, and the other values agree."""
+    rng = np.random.RandomState(8)
+    xy, valid = layout("invalid", rng)
+    d_rgb, d_ray = _bf16_upstream(rng)
+    p = int(np.flatnonzero(~valid[1])[3])
+    d_rgb[1, p, 5] = np.inf
+    d_ray[1, p, 2] = np.nan
+    q = int(np.flatnonzero(~valid[0] & (xy[0, :, 0] < 0))[0])  # clamped
+    d_ray[0, q, 0] = -np.inf
+    plain = [t.float().numpy() for t in _plain_bf16(xy, valid, d_rgb, d_ray)]
+    scale = [np.abs(t.float().numpy()) for t in _plain_bf16(
+        xy, valid, np.abs(d_rgb), np.abs(d_ray))]
+    want = _want_bf16(jax_vjp_bf16, xy, valid, d_rgb, d_ray)
+    got = model_backward(xy, valid, d_rgb, d_ray, dtype="bfloat16")
+    for g, pl, w, a, what in zip(got, plain[1:], want[1:], scale[1:],
+                                 ("img_feats", "ray_feats")):
+        assert np.isnan(g).any()
+        assert not (np.isnan(pl) & ~np.isnan(w)).any()
+        assert np.isnan(w).all(axis=(1, 2)).any()   # a whole view channel
+        both = ~np.isnan(w)
+        assert_bf16_equal(pl[both], w[both], a[both], f"plain {what}",
+                          JAX_ULPS)
+        assert_bf16_equal(g, pl, a, f"model {what}")
+    assert np.isnan(got[1][0, :, :, 0]).sum() == 4   # the whole window
+
+
+# Queue 3 item 1 (ROADMAP), the reproduction: 2 views of 6 x 8 maps, C = 8
+RH, RW, RC = 24, 32, 8
+
+
+def _repro_layout(name, rng):
+    """A: 300 points uniform over the image +- 2 px (borders clamped); B:
+    2,000 points in a 4 x 3-pixel patch (a pile on a few cells)."""
+    if name == "A":
+        n = 300
+        xy = np.stack([rng.uniform(-2, RW + 1, (V, n)),
+                       rng.uniform(-2, RH + 1, (V, n))], -1)
+        valid = rng.rand(V, n) > 0.1
+    else:
+        n = 2000
+        xy = np.stack([rng.uniform(13, 17, (V, n)),
+                       rng.uniform(9, 12, (V, n))], -1)
+        valid = np.ones((V, n), bool)
+    return xy.astype(F32), valid
+
+
+@pytest.mark.parametrize("name", ("A", "B"))
+def test_bf16_gather_gradient_matches_feg_bwd(name):
+    """The gather on bfloat16 maps that require a gradient (the CPU path,
+    through autograd): the maps' gradients equal JAX's VJP of
+    `fused_epipolar_gather` on `pack_feature_maps(..., bfloat16)` maps bit
+    for bit, or within one bfloat16 ulp where a float32 sum runs in
+    another order (torch.gather's backward used to add every tap into the
+    bfloat16 map, 1.5-3 x JAX's own bfloat16-to-float32 gap)."""
+    rng = np.random.RandomState(20 + (name == "B"))
+    xy, valid = _repro_layout(name, rng)
+    n = xy.shape[1]
+    d_rgb, d_ray = _bf16_upstream(rng, n, RC)
+    maps = [torch.from_numpy(rng.randn(V, *s).astype(F32)).to(
+        torch.bfloat16).requires_grad_()
+        for s in ((RH, RW, 3), (RH // 4, RW // 4, RC), (RH // 4, RW // 4, RC))]
+    rgb, ray = EG.epipolar_gather(*maps, torch.from_numpy(xy),
+                                  torch.from_numpy(valid))
+    assert rgb.dtype == torch.bfloat16 and ray.dtype == torch.float32
+    torch.autograd.backward(
+        [rgb, ray], [torch.from_numpy(d_rgb).to(torch.bfloat16),
+                     torch.from_numpy(d_ray)])
+    want = _want_bf16(_jax_vjp(jnp.bfloat16, RH, RW), xy, valid, d_rgb,
+                      d_ray, RH, RW, RC)
+    scale = [t.float().numpy() for t in _plain_bf16(
+        xy, valid, np.abs(d_rgb), np.abs(d_ray), RH, RW, RC)]
+    for m, w, a, what in zip(maps, want, scale,
+                             ("imgs", "img_feats", "ray_feats")):
+        assert m.grad.dtype == torch.bfloat16
+        assert_bf16_equal(m.grad.float().numpy(), w, a, what, JAX_ULPS)

@@ -287,12 +287,40 @@ def test_entry_script_runs(tmp_path):
     assert [r["step"] for r in recs[1:]] == [1, 2]
 
 
-def test_entry_script_refuses_bfloat16(capsys):
+def test_entry_script_refuses_bfloat16(capsys, tmp_path):
+    """The entry script refuses a compute dtype it cannot train before it
+    touches a device: float16 from the YAML. (It refused bfloat16 until the
+    bfloat16 train step was ported; tests/test_torch_train_bf16.py trains
+    with --compute-dtype bfloat16.)"""
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text("compute_dtype: float16\n")
     with pytest.raises(SystemExit) as e:
-        cli.main(["--device", "cpu", "--compute-dtype", "bfloat16"])
+        cli.main(["--device", "cpu", "--cfg", str(cfg)])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "float32 only" in err and "bfloat16 train step" in err
+    assert "'float16'" in err and "float32 or bfloat16" in err
+
+
+def test_entry_script_trains_bfloat16(tmp_path):
+    """Two steps of `train/cli.py --compute-dtype bfloat16 --small` on the
+    CPU, in this process, with a validation (the bfloat16 eval step): every
+    logged loss finite, no update skipped, a checkpoint of float32
+    parameters."""
+    assert cli.main(["--device", "cpu", "--small", "--steps", "2",
+                     "--workers", "0", "--workdir", str(tmp_path),
+                     "--log-every", "1", "--save-interval", "2",
+                     "--val-interval", "2",
+                     "--no-tensorboard", "--compute-dtype", "bfloat16"]) == 0
+    recs = records(tmp_path)
+    assert recs[0]["run_config"]
+    steps = [r for r in recs if "sec_per_step" in r]
+    assert [r["step"] for r in steps] == [1, 2]
+    for r in steps:
+        assert r["nonfinite_grad"] == 0.0 and np.isfinite(r["loss_vgn"])
+    vals = [r for r in recs if r.get("val")]
+    assert len(vals) == 1 and np.isfinite(vals[0]["loss_vgn"])
+    params = TT.load_params(str(tmp_path / "ckpt" / "latest"))
+    assert all(t.dtype == torch.float32 for t in params.values())
 
 
 def export_script():
