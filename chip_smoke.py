@@ -69,7 +69,19 @@ NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
    and on the CPU, on random, the bfloat16 planner's and the bfloat16 train
    pass's coordinates, ragged and misaligned; checks two launches
    bit-equal and non-finite upstream at invalid points; reports its
-   kernels' registers, spills and shared memory, and times it.
+   kernels' registers, spills and shared memory, and times it;
+13. the closed loop (`sim.clutter_removal.run`, the entry point of
+   `python3 -m graspnerf_tpu_torch.sim.cli`): SimWorld("pile") scenes, the
+   domain-randomized renderer and the gripper on the host with the native
+   tracer, the TSDF fusion and the float32 planner on the card, at 6 x 288
+   x 512 views and 40^3, for 2 rounds of 3 objects, the threshold picked
+   at each planning call; at every planning call the plain planner on the
+   same views (volume, candidates but for those within 1e-4 of the
+   threshold); checks no round raised, every round was
+   logged, a grasp was executed, no ray was traced by numpy, and one launch
+   of the view fuse and of the gather a planning call; prints the seconds
+   per grasp attempt by part and the metrics; then one VGN baseline call
+   on the card against the CPU (identical candidates).
 
 `--profile` adds a torch.profiler breakdown of a planning call, of a
 render and of a train step by stage and by op. It prints a `kernels` JSON
@@ -106,6 +118,10 @@ BF16_LOOP_LOG_EVERY = 3   # Trainer.run in bfloat16: two logged windows
 LOOP_STEPS, LOOP_RESUMED_STEPS, LOOP_WORKERS = 12, 2, 4
 LOOP_LOG_EVERY, LOOP_VAL_INTERVAL, LOOP_VAL_BATCHES, LOOP_SAVE = 4, 6, 2, 4
 PIPELINE_BATCHES = 8   # timed after the workers' queues are drained
+# the closed loop: clutter_removal.run on SimWorld("pile") at the shipped view
+# size; cut in depth only, to 2 rounds of 3 objects (the JAX package's
+# campaign ran 24 rounds of 4, data/simgrasp_r5)
+CLOSED_LOOP_ROUNDS, CLOSED_LOOP_OBJECTS, CLOSED_LOOP_SEED = 2, 3, 0
 # the SDF output kernels scaled so that random weights leave the SDF inside
 # (-1, 1) rather than clipped, and so carrying the whole chain's error
 SDF_SCALE = 0.1
@@ -124,6 +140,13 @@ FUSE_ATOL, FUSE_RTOL = 1e-4, 1e-4
 GATHER_ATOL = 1e-4
 # - planner: both differences above pass through the geometry head.
 PLANNER_ATOL = 1e-4
+# - the closed loop: the kernel planner against the plain planner at every
+#   planning call, the volume within PLANNER_ATOL and the candidate sets
+#   identical but for candidates whose quality lies within
+#   NEAR_THRESHOLD_ATOL of the threshold (the volume's differences can move
+#   such a quality across it); the VGN baseline on the card against the same
+#   call on the CPU: identical candidates, values within PLANNER_ATOL.
+NEAR_THRESHOLD_ATOL = 1e-4
 # - render: the gather's differences pass straight into the colours (a
 #   convex blend of the gathered RGB) and, through the dist decoder and the
 #   view fuse, into SDF, alpha (the SDF times inv_s = e^3 under a sigmoid)
@@ -529,15 +552,19 @@ def cand_set(cand):
         cand.rotations[keep].tolist(), cand.widths[keep].tolist())}
 
 
+def cand_err(ck, cp):
+    """Largest difference of score, rotation and width over the candidates
+    of `ck` (cand_set) that `cp` has too."""
+    return max((abs(a - b) for key in set(ck) & set(cp) for a, b in zip(
+        [ck[key][0], *ck[key][1], ck[key][2]],
+        [cp[key][0], *cp[key][1], cp[key][2]])), default=0.0)
+
+
 def planner_params():
-    """The planners' seeded weights at the shipped widths."""
-    from graspnerf_tpu_torch.models import GraspNeRF, init_parameters_
-    model = init_parameters_(GraspNeRF(), torch.Generator().manual_seed(SEED))
-    sd = model.state_dict()
-    # widths inside process()'s [1.33, 9.33] voxel window, so that random
-    # weights leave candidates
-    sd["vgn_net.conv_width.bias"].fill_(4.0)
-    return sd
+    """The planners' seeded weights at the shipped widths (widths inside
+    process()'s window, so that random weights leave candidates)."""
+    from graspnerf_tpu_torch.sim.cli import seeded_params
+    return seeded_params({}, SEED)
 
 
 def pick_threshold(planner, inputs, what="planner"):
@@ -549,7 +576,12 @@ def pick_threshold(planner, inputs, what="planner"):
     ref = planner.scene(*inputs)
     vol, (qual, rot, width), _ = planner.volume(
         ref, *planner.encode(ref["imgs"]))
-    peaks = nms(process(vol, qual[0, ..., 0], width[0, ..., 0]), 0.0)
+    return threshold_of(nms(process(vol, qual[0, ..., 0], width[0, ..., 0]),
+                            0.0), what)
+
+
+def threshold_of(peaks, what):
+    """pick_threshold's choice on a volume of quality peaks (NMS at 0)."""
     top = torch.sort(peaks[peaks > 0], descending=True).values.tolist()
     check(len(top) > 4, f"{what}: only {len(top)} quality peaks")
     k = max(range(4, min(48, len(top) - 1) + 1),
@@ -599,9 +631,7 @@ def run_planner(dev):
     check(len(ck) > 0, "no candidates")
     check(sorted(ck) == sorted(cp), f"candidate sets differ: {sorted(ck)} "
           f"vs {sorted(cp)}")
-    e_cand = max(abs(a - b) for key in ck for a, b in zip(
-        [ck[key][0], *ck[key][1], ck[key][2]],
-        [cp[key][0], *cp[key][1], cp[key][2]]))
+    e_cand = cand_err(ck, cp)
     check(e_cand <= PLANNER_ATOL, f"candidate values vs plain: {e_cand}")
     log(f"planner vs plain versions (atol {PLANNER_ATOL}): volume {e_vol:.3e}, "
         f"qual/rot/width "
@@ -609,6 +639,244 @@ def run_planner(dev):
         f"(values {e_cand:.3e}); sdf range [{float(vol_k.min()):.3f}, "
         f"{float(vol_k.max()):.3f}]")
     return kern, launches, (images, poses, Ks, dr)
+
+
+class AttemptClock:
+    """Seconds per grasp attempt of the closed loop, by part: render (host:
+    the six eval views and the six depth views of the TSDF), tsdf (the
+    fusion on the card, acquire_tsdf's own time), planning (core() of the
+    kernel planner), execution (host: the gripper state machine and the
+    re-settle). attempt is the wall time from the attempt's first render to
+    the end of its execution, less `check` (the plain planner run beside it
+    and the comparisons)."""
+
+    PARTS = ("render_s", "tsdf_s", "planning_s", "execution_s", "attempt_s")
+
+    def __init__(self):
+        self.cur, self.done = None, []
+
+    def begin(self):
+        if self.cur is None:
+            self.cur = dict.fromkeys(self.PARTS[:-1] + ("check_s",), 0.0)
+            self.cur["t0"] = time.perf_counter()
+
+    def add(self, part, seconds):
+        self.begin()
+        self.cur[part] += seconds
+
+    def timed(self, part, fn):
+        def call(*args, **kw):
+            self.begin()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.add(part, time.perf_counter() - t0)
+        return call
+
+    def close(self, executed=True):
+        if self.cur is not None:
+            cur = self.cur
+            cur["attempt_s"] = (time.perf_counter() - cur.pop("t0")
+                                - cur["check_s"])
+            if executed:
+                self.done.append(cur)
+            self.cur = None
+
+    def summary(self):
+        """{part: [median, min, max]} over the executed attempts."""
+        return {k: [float(np.median(v)), min(v), max(v)] for k, v in (
+            (k, [a[k] for a in self.done]) for k in self.PARTS)}
+
+
+def compare_near_threshold(cand_k, cand_p, thr):
+    """The kernel planner's candidates against the plain planner's: the same
+    set but for those within NEAR_THRESHOLD_ATOL of the threshold `thr`, the
+    values of the common ones within PLANNER_ATOL. Returns (candidates,
+    near-threshold candidates, largest value error)."""
+    ck, cp = cand_set(cand_k), cand_set(cand_p)
+    near = {key for c in (ck, cp) for key, v in c.items()
+            if abs(v[0] - thr) <= NEAR_THRESHOLD_ATOL}
+    check(sorted(set(ck) - near) == sorted(set(cp) - near),
+          f"candidate sets differ beyond the threshold's margin: "
+          f"{sorted(set(ck) ^ set(cp))}")
+    err = cand_err(ck, cp)
+    check(err <= PLANNER_ATOL, f"candidate values vs plain: {err}")
+    return len(ck), len(near), err
+
+
+def run_closed_loop(dev, sd):
+    """clutter_removal.run, the port's closed loop, on SimWorld("pile") at
+    HEIGHT x WIDTH with the float32 planner through the kernels, its
+    threshold picked at each planning call on that call's views as
+    pick_threshold does (by the plain planner: random weights leave no
+    threshold that suits every scene); the plain planner beside it at
+    every planning call; then one VGN baseline call on the card against
+    the CPU."""
+    import tempfile
+    from graspnerf_tpu_torch.data import native
+    from graspnerf_tpu_torch.detect.planner import GraspNeRFPlanner
+    from graspnerf_tpu_torch.sim import clutter_removal
+    from graspnerf_tpu_torch.sim import objects as sim_objects
+    from graspnerf_tpu_torch.sim.world import SimWorld
+
+    check(native.available(), "the native ray tracer did not build")
+    kern = GraspNeRFPlanner(sd, device=dev)
+    plain = GraspNeRFPlanner(sd, device=dev, use_kernels=False)
+    world = SimWorld("pile", rng=np.random.RandomState(CLOSED_LOOP_SEED),
+                     device=dev)
+    clock, calls = AttemptClock(), []
+    kern_core, plain_core = kern.core, plain.core
+
+    def core(images, extrinsics, Ks, depth_range, *args):
+        inputs = (images, extrinsics, Ks, depth_range)
+        t0 = time.perf_counter()
+        # the plain planner's pick: no kernel launch is counted
+        kern.qual_threshold = plain.qual_threshold = pick_threshold(
+            plain, inputs, f"closed loop call {len(calls)}")
+        check_s = time.perf_counter() - t0
+        vol_k, cand_k, dt = kern_core(*inputs, *args)
+        clock.add("planning_s", dt)
+        t0 = time.perf_counter()
+        vol_p, cand_p, _ = plain_core(*inputs, *args)
+        check(vol_k.shape == (RES,) * 3 and bool(torch.isfinite(vol_k).all()),
+              "closed loop: volume shape / finite")
+        e_vol = max_err(vol_k, vol_p)
+        check(e_vol <= PLANNER_ATOL, f"closed loop: volume vs plain {e_vol}")
+        n, n_near, e_cand = compare_near_threshold(cand_k, cand_p,
+                                                   kern.qual_threshold)
+        calls.append({"volume_err": e_vol, "candidates": n,
+                      "near_threshold": n_near, "candidate_err": e_cand})
+        clock.add("check_s", check_s + time.perf_counter() - t0)
+        if n == 0:      # the round ends without a grasp
+            clock.close(executed=False)
+        return vol_k, cand_k, dt
+
+    kern.core = core
+    world.observe = clock.timed("render_s", world.observe)
+    world.sim.observe = clock.timed("render_s", world.sim.observe)
+    acquire = world.acquire_tsdf
+
+    def acquire_tsdf(*args, **kw):
+        tsdf, t_int = acquire(*args, **kw)
+        clock.add("tsdf_s", t_int)
+        return tsdf, t_int
+    world.acquire_tsdf = acquire_tsdf
+    execute = clock.timed("execution_s", world.execute_grasp)
+
+    def execute_grasp(*args, **kw):
+        out = execute(*args, **kw)
+        clock.close()
+        return out
+    world.execute_grasp = execute_grasp
+    reset = world.reset
+
+    def reset_world(*args, **kw):
+        clock.close(executed=False)
+        return reset(*args, **kw)
+    world.reset = reset_world
+
+    logdir = tempfile.mkdtemp(prefix="closed_loop_")
+    sim_objects.TRACES.update(native=0, numpy=0)
+    zero_counts()
+    t0 = time.time()
+    metrics = clutter_removal.run(
+        kern, logdir, n_rounds=CLOSED_LOOP_ROUNDS,
+        n_objects=CLOSED_LOOP_OBJECTS, h=HEIGHT, w=WIDTH,
+        seed=CLOSED_LOOP_SEED, world=world)
+    wall = time.time() - t0
+    launches = counts()
+    errors = os.path.join(logdir, "errors.log")
+    if os.path.exists(errors):
+        with open(errors) as f:
+            raise AssertionError("closed loop: a round raised:\n" + f.read())
+    with open(os.path.join(logdir, "rounds.csv")) as f:
+        n_rounds = len(f.read().splitlines()) - 1
+    check(n_rounds == CLOSED_LOOP_ROUNDS == metrics["n_rounds"],
+          f"closed loop: {n_rounds} rounds logged")
+    check(metrics["n_grasps"] >= 1, "closed loop: no grasp executed")
+    check(len(clock.done) == metrics["n_grasps"],
+          f"closed loop: {len(clock.done)} attempts timed, "
+          f"{metrics['n_grasps']} logged")
+    check(sim_objects.TRACES["numpy"] == 0 and sim_objects.TRACES["native"],
+          f"closed loop: rays traced {sim_objects.TRACES}")
+    n = len(calls)
+    check(launches["view_fuse"] == launches["epipolar_gather"] == n
+          and launches["epipolar_gather_backward"] == 0
+          and not any(bf16_counts()[0].values()),
+          f"closed loop: launches {launches} in {n} planning calls, "
+          f"expected 1 view fuse and 1 gather (float32) a call")
+    log(f"closed loop: SimWorld('pile') {CLOSED_LOOP_ROUNDS} rounds x "
+        f"{CLOSED_LOOP_OBJECTS} objects (depth cut from the JAX campaign's "
+        f"24 rounds), {VIEWS} x {HEIGHT} x {WIDTH} views, {RES}^3, "
+        f"{n} planning calls, {metrics['n_grasps']} grasps, {wall:.1f} s; "
+        f"launches {launches} (view fuse and gather once a call); rays "
+        f"traced {sim_objects.TRACES}; no round error")
+    log(f"closed loop vs plain planner (atol {PLANNER_ATOL}): volume "
+        f"{max(c['volume_err'] for c in calls):.3e}, candidates "
+        f"{[c['candidates'] for c in calls]} a call, identical but for "
+        f"{sum(c['near_threshold'] for c in calls)} within "
+        f"{NEAR_THRESHOLD_ATOL} of the threshold, values "
+        f"{max(c['candidate_err'] for c in calls):.3e}")
+    times = clock.summary()
+    log("closed loop seconds per grasp attempt (median, min, max of "
+        f"{len(clock.done)}): " + json.dumps(times))
+    log("closed loop metrics (random weights: the success rate means "
+        "nothing): " + json.dumps(metrics))
+    vgn = run_vgn(dev, sd, world)
+    return {"launches": launches, "calls": n, "attempts": len(clock.done),
+            "times": times, "metrics": metrics, "vgn": vgn}
+
+
+def run_vgn(dev, sd, world):
+    """One VGNPlanner call on the simulator's depth views (a fresh scene,
+    the six hemisphere views of acquire_tsdf at HEIGHT x WIDTH), on the
+    card and on the CPU: identical candidates."""
+    from graspnerf_tpu_torch.data.synthetic import (BBOX_MIN,
+                                                    hemisphere_poses,
+                                                    intrinsics)
+    from graspnerf_tpu_torch.detect.postprocess import nms, process
+    from graspnerf_tpu_torch.detect.vgn_baseline import (
+        TSDF_THRES_HIGH, TSDF_THRES_LOW, VGNPlanner)
+    world.reset(CLOSED_LOOP_OBJECTS)
+    K = intrinsics(HEIGHT, WIDTH)
+    shift = np.eye(4, dtype=np.float32)
+    shift[:3, 3] = BBOX_MIN
+    depths, exts = [], []
+    for pose in hemisphere_poses()[::4][:VIEWS]:
+        depths.append(world.sim.observe(pose, K, HEIGHT, WIDTH)[1])
+        ext = np.eye(4, dtype=np.float32)
+        ext[:3] = pose
+        exts.append(ext @ shift)
+    args = (np.stack(depths), np.tile(K[None], (VIEWS, 1, 1)), np.stack(exts))
+    params = {k[len("vgn_net."):]: v for k, v in sd.items()
+              if k.startswith("vgn_net.")}
+    card = VGNPlanner(params, device=dev)
+    cpu = VGNPlanner(params, device="cpu")
+    tsdf = card.fuse(*args)
+    (qual, _, width), _ = card.detect(tsdf)
+    peaks = nms(process(tsdf, qual[0, ..., 0], width[0, ..., 0],
+                        tsdf_thres_high=TSDF_THRES_HIGH,
+                        tsdf_thres_low=TSDF_THRES_LOW), 0.0)
+    card.qual_threshold = cpu.qual_threshold = threshold_of(peaks, "vgn")
+    card.core(*args)        # warm-up
+    tsdf_c, cand_c, dt = card.core(*args)
+    tsdf_h, cand_h, dt_cpu = cpu.core(*args)
+    e_tsdf = max_err(tsdf_c.cpu(), tsdf_h)
+    check(e_tsdf <= 1e-5, f"vgn: tsdf card vs cpu {e_tsdf}")
+    ck, ch = cand_set(cand_c), cand_set(cand_h)
+    check(len(ck) > 0 and sorted(ck) == sorted(ch),
+          f"vgn: candidates card vs cpu {sorted(ck)} vs {sorted(ch)}")
+    e_cand = cand_err(ck, ch)
+    check(e_cand <= PLANNER_ATOL, f"vgn: candidate values card vs cpu "
+          f"{e_cand}")
+    log(f"vgn: VGNPlanner on {VIEWS} depth views {HEIGHT} x {WIDTH}, "
+        f"thresholds ({TSDF_THRES_HIGH}, {TSDF_THRES_LOW}): {len(ck)} "
+        f"candidates identical on the card and the CPU (values "
+        f"{e_cand:.3e}, tsdf {e_tsdf:.3e}); core() {dt * 1e3:.1f} ms card, "
+        f"{dt_cpu * 1e3:.1f} ms CPU")
+    return {"candidates": len(ck), "core_ms": dt * 1e3,
+            "cpu_core_ms": dt_cpu * 1e3}
 
 
 def render_data(inputs, dev):
@@ -2280,6 +2548,7 @@ def main() -> int:
     check(not any(bf16_counts()[0].values()),
           f"bfloat16 launches in the float32 train loop: {bf16_counts()[0]}")
     train16 = run_train_bf16(dev)
+    closed = run_closed_loop(dev, planner_params())
     args, args16 = render["args"], render16["args"]
     rows = [check_view_fuse(dev, gen, args["view_fuse"]),
             check_gather(dev, gen, planner, inputs, args["epipolar_gather"]),
@@ -2307,7 +2576,7 @@ def main() -> int:
         row["launches"] = launches16.get(name, row["train_launches"])
         row["render_launches"] = render16["launches"]["render"].get(name, 0)
         row["forward_launches"] = render16["launches"]["forward"].get(name, 0)
-        row["loop_launches"] = 0
+        row["loop_launches"] = row["closed_loop_launches"] = 0
     for row in rows:
         # `launches`: the row's main path, the planner for the forward
         # kernels, the train steps for the backward
@@ -2321,6 +2590,9 @@ def main() -> int:
         row["loop_launches"] = loop["launches"][name]
         row["loop_steps"] = loop["steps"]
         row["loop_resumed_launches"] = loop["resumed_launches"][name]
+        # the closed loop's planning calls, one a grasp attempt
+        row["closed_loop_launches"] = closed["launches"][name]
+        row["closed_loop_calls"] = closed["calls"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "render_launches", "train_launches", "loop_launches")

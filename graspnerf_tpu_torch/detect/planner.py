@@ -1,17 +1,20 @@
-"""Grasp planner API (graspnerf_tpu/detect/planner.py:42-120).
+"""Grasp planner API (graspnerf_tpu/detect/planner.py:42-145).
 
 Two stages per planning call, as in the JAX planner: encode the six views,
 then query the SDF volume, run the grasp head and post-process on the device.
-Only the final candidate list goes to the host.
+Only the final candidate list goes to the host. `load_rendered_views` reads
+the reference renderer's file contract.
 """
 from __future__ import annotations
 
+import os
 import time
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..data.database import BLENDER2OPENCV
 from ..models import load_graspnerf, resolve_device
 from .postprocess import (process, nms, extract_candidates,
                           candidates_to_grasps)
@@ -101,3 +104,27 @@ class GraspNeRFPlanner:
         rng = np.random.RandomState(self.seed + round_idx + n_grasp)
         grasps, scores = candidates_to_grasps(cand, VOXEL_SIZE, rng)
         return grasps, scores, toc
+
+
+def load_rendered_views(render_dir: str, camera_pose_file: str,
+                        view_ids: Sequence[int], wh=(512, 288),
+                        K: Optional[np.ndarray] = None):
+    """Read the reference renderer's file contract (ref main.py:167-199):
+    rgb/%04d.png resized to `wh` (PIL, bilinear), camera_pose.npy (cam->world,
+    Blender axes) -> world->cam OpenCV poses, and the fixed vgn_syn
+    intrinsics scaled to `wh` unless K is given. Returns (images [V,h,w,3]
+    in [0,1], extrinsics [V,3,4], Ks [V,3,3]), numpy float32."""
+    from PIL import Image
+    imgs, poses = [], []
+    cam_poses = np.load(camera_pose_file)
+    for i in view_ids:
+        p = os.path.join(render_dir, "rgb", "%04d.png" % i)
+        img = Image.open(p).convert("RGB").resize(wh, Image.BILINEAR)
+        imgs.append(np.asarray(img, np.float32) / 255.0)
+        poses.append(np.linalg.inv(cam_poses[i] @ BLENDER2OPENCV)[:3, :])
+    if K is None:
+        K = np.array([[892.62, 0, 639.5], [0, 892.62, 359.5], [0, 0, 1]],
+                     np.float32)
+        K[:2] *= wh[0] / 1280.0
+    Ks = np.tile(K[None], (len(view_ids), 1, 1)).astype(np.float32)
+    return (np.stack(imgs), np.stack(poses).astype(np.float32), Ks)

@@ -9,7 +9,7 @@ import torch
 
 from ..ops.image import (gaussian_filter_3d, binary_dilation_masked,
                          maximum_filter_3d)
-from .transform import Rotation, Transform
+from ..sim.transform import Rotation, Transform
 
 
 def process(tsdf_vol, qual_vol, width_vol, gaussian_filter_sigma: float = 1.0,
