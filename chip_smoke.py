@@ -81,7 +81,28 @@ NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
    logged, a grasp was executed, no ray was traced by numpy, and one launch
    of the view fuse and of the gather a planning call; prints the seconds
    per grasp attempt by part and the metrics; then one VGN baseline call
-   on the card against the CPU (identical candidates).
+   on the card against the CPU (identical candidates);
+14. dataset -> train: the port's dataset writer (`data.generate`, the
+   entry point of `python3 -m graspnerf_tpu_torch.data.generate`) writes 2
+   procedural pile scenes of 24 views at 288 x 512 with 40 executed grasp
+   candidates each (the TSDF fused on the card; seconds a scene by part),
+   `VGNSynDataset` reads the tree back, `Trainer.run` takes 12 steps on it
+   through 4 data workers (3 launches of each kernel a step, its
+   sec_per_step and data wait, their steady state past the workers'
+   queued batches, and the loader's own rate), and the first batch's
+   losses and gradients (and, where it draws no positive grasp label, a
+   written sample's that does) are held against the plain versions; no
+   ray may be traced by numpy and some written label must be positive;
+15. the reference-checkpoint import: a reference-format model_best.pth of
+   the planner's weights (and a dead buffer) through `python3 -m
+   graspnerf_tpu_torch.convert`, the float32 planner's volume on the
+   imported weights bit-equal to the original weights';
+16. `ops.mesh.volume_to_mesh` on the planner's volume (host);
+17. the gather's gradient with respect to xy (B'-xy, both instances), on
+   no path (0 launches in every phase above): held against its plain
+   version on random, the planner's and border-clamped coordinates, at
+   ragged P and misaligned, through `torch.autograd.grad`, with inf and NaN
+   upstream at invalid points; registers, spills and times.
 
 `--profile` adds a torch.profiler breakdown of a planning call, of a
 render and of a train step by stage and by op. It prints a `kernels` JSON
@@ -122,6 +143,16 @@ PIPELINE_BATCHES = 8   # timed after the workers' queues are drained
 # size; cut in depth only, to 2 rounds of 3 objects (the JAX package's
 # campaign ran 24 rounds of 4, data/simgrasp_r5)
 CLOSED_LOOP_ROUNDS, CLOSED_LOOP_OBJECTS, CLOSED_LOOP_SEED = 2, 3, 0
+# the dataset -> train phase: the port's writer at the shipped data shape
+# (24 hemisphere views at 288 x 512, 40^3, 40 executed candidates a scene),
+# cut in depth to 2 scenes (a dataset has thousands), then 12 steps of
+# Trainer.run on them (a run has 500,000): the last 4 past the batches the
+# workers queue at the start
+GEN_SCENES, GEN_CANDIDATES, GEN_STEPS = 2, 40, 12
+# the writer's seed: both of its scenes carry positive executed labels at
+# this shape (the dataset line prints them; seed 0's have none), so that
+# the rotation and width losses see written labels
+GEN_SEED = 4
 # the SDF output kernels scaled so that random weights leave the SDF inside
 # (-1, 1) rather than clipped, and so carrying the whole chain's error
 SDF_SCALE = 0.1
@@ -207,6 +238,14 @@ BWD_ATOL, BWD_RTOL, BWD_SUM_RTOL = 5e-4, 1e-5, 1e-4
 #   differ, each by at most one bfloat16 ulp of its cell's sum of
 #   |contributions|; NaN exactly where the plain version has it.
 BWD_BF16_SHARE = 1e-3
+# - the gather's gradient with respect to xy (B'-xy) vs its plain version
+#   on the card, both instances: the same taps and weights (IEEE division
+#   on both sides) and tap differences, but each point's sum over its
+#   2 C + 3 channels runs in another order (the warp's shuffle tree against
+#   PyTorch's reductions), so max |kernel - plain| <= XY_RTOL x the largest
+#   |d_xy|; along an axis clamped at the border exactly 0; NaN exactly where
+#   the plain version has it.
+XY_RTOL = 1e-5
 # bfloat16, kernel vs plain version on the card (the same model weights):
 # - view fuse: both round the same float32 values to bfloat16 at the same
 #   places, but sum in another order, so an operand can round one bfloat16
@@ -1372,19 +1411,10 @@ def check_gather_bf16(dev, gen, planner, scene, render_args):
     """The gather's bfloat16 instance against its plain version on the card
     (each value within one bfloat16 ulp, or GATHER_ATOL) and on the CPU
     (bit-equal), invalid points 0, on random, the bfloat16 planner's and
-    the bfloat16 render's coordinates, at ragged P and shifted; that xy
-    requiring a gradient is refused; and its times. Returns its row."""
+    the bfloat16 render's coordinates, at ragged P and shifted; and its
+    times. Returns its row."""
     from graspnerf_tpu_torch.ops import epipolar_gather as eg
     bf = lambda a: [t.to(BF16) for t in a[:3]] + list(a[3:])  # noqa: E731
-    xy = bf(gather_inputs(gen, dev, 64))
-    try:
-        with torch.enable_grad():
-            eg.epipolar_gather(xy[0], xy[1].requires_grad_(), xy[2],
-                               xy[3].requires_grad_(), xy[4])
-        refused = False
-    except NotImplementedError:
-        refused = True
-    check(refused, "gather bf16: xy requiring a gradient was taken")
 
     vol, render = f"random P={RES ** 3}", f"random P={RENDER_ROWS}"
     planned, rendered = f"planner P={RES ** 3}", f"render P={RENDER_ROWS}"
@@ -2019,16 +2049,6 @@ def check_gather_backward(dev, gen, planner, scene, train_args, names):
     arguments in the train step's coarse pass; names: its CUDA launches a
     call as the profiler saw them (`backward_launch_events`)."""
     from graspnerf_tpu_torch.ops import epipolar_gather as eg
-    # xy requiring a gradient is refused, not silently dropped
-    xy = gather_inputs(gen, dev, 64)
-    try:
-        with torch.enable_grad():
-            eg.epipolar_gather(*xy[:3], xy[3].requires_grad_(), xy[4])
-        refused = False
-    except NotImplementedError:
-        refused = True
-    check(refused, "gather: xy requiring a gradient was taken")
-
     vol, planned = f"random P={RES ** 3}", f"planner P={RES ** 3}"
     trained, spread = f"train P={TRAIN_ROWS}", f"random P={TRAIN_ROWS}"
     cases = {vol: gather_inputs(gen, dev), planned: planner_gather_inputs(
@@ -2349,6 +2369,386 @@ def check_gather_backward_bf16(dev, gen, planner, scene, train_args,
             **info}
 
 
+# ---------------------------------------- the gather's gradient w.r.t. xy
+def border_inputs(gen, dev, P=RES ** 3):
+    """gather_inputs with every point clamped at the border on one axis:
+    the first half left or right of the image's columns (0.01 to 6 px past
+    the first or last pixel centre), the second half above or below its
+    rows; their derivative along that axis is exactly 0."""
+    args = gather_inputs(gen, dev, P)
+    xy = args[3].clone()
+    low = (torch.rand(VIEWS, P, generator=gen) > 0.5).to(dev)
+    # at least 0.01 px past the centre: a smaller offset below 0 can round
+    # to the border itself, where floor takes the inner taps
+    off = (0.01 + torch.rand(VIEWS, P, generator=gen) * 6).to(dev)
+    for axis, size, pts in ((0, WIDTH, slice(0, P // 2)),
+                            (1, HEIGHT, slice(P // 2, P))):
+        xy[:, pts, axis] = torch.where(low[:, pts], -off[:, pts],
+                                       size - 1 + off[:, pts])
+    args[3] = xy
+    return args
+
+
+def gather_xy_library(args, grads):
+    """Yardstick, which the port never calls: the gradient of three
+    F.grid_sample calls with respect to their (normalised) grid alone, in
+    the maps' dtype."""
+    import torch.nn.functional as F
+    imgs, f1, f2, xy, _ = args
+    maps = [m.detach().permute(0, 3, 1, 2).contiguous() for m in (imgs, f1, f2)]
+    g = torch.stack([xy[..., 0] / (WIDTH - 1) * 2 - 1,
+                     xy[..., 1] / (HEIGHT - 1) * 2 - 1], -1)[:, None].to(
+                         imgs.dtype).detach().requires_grad_()
+    with torch.enable_grad():
+        outs = [F.grid_sample(m, g, mode="bilinear", padding_mode="border",
+                              align_corners=(i == 0))
+                for i, m in enumerate(maps)]
+    d_rgb, d_ray = grads
+    cot = [d_rgb[..., :3], d_rgb[..., 3:], d_ray]
+    cot = [c.to(imgs.dtype).permute(0, 2, 1)[:, :, None].contiguous()
+           for c in cot]
+    return lambda: torch.autograd.grad(outs, g, cot, retain_graph=True)
+
+
+def check_gather_backward_xy(dev, gen, planner, scene, dtype=torch.float32):
+    """B'-xy, the gather's gradient with respect to xy, of the maps' `dtype`
+    instance: the kernel against its plain version on the card (XY_RTOL of
+    the largest |d_xy|) on random, the planner's and border-clamped
+    coordinates (exactly 0 along the clamped axis), at ragged P and on
+    misaligned tensors;
+    `torch.autograd.grad` through `epipolar_gather` bit-equal to the
+    kernel's own launch; inf and NaN upstream at invalid points (NaN
+    exactly there); registers and spills; times. `planner`: of that
+    dtype. Returns its row."""
+    from graspnerf_tpu_torch.ops import epipolar_gather as eg
+    bf16 = dtype == BF16
+    name = "epipolar_gather_backward_xy" + ("_bf16" if bf16 else "")
+
+    def cast(args):
+        return [t.to(dtype) for t in args[:3]] + list(args[3:])
+    vol, planned = f"random P={RES ** 3}", f"planner P={RES ** 3}"
+    border = f"border P={RES ** 3}"
+    planner_args = planner_gather_inputs(planner, scene)
+    if bf16:
+        planner_args[:3] = planner.model.nr_net.gather_maps(*planner_args[:3])
+    cases = {vol: cast(gather_inputs(gen, dev)), planned: planner_args,
+             border: cast(border_inputs(gen, dev))}
+    for P in (1, 31, 33):
+        cases[f"random P={P}"] = cast(gather_inputs(gen, dev, P))
+    # maps and d_ray one element off 16 bytes: the kernel's float reads
+    cases["random P=1000 shifted"] = [
+        shifted(t) for t in cast(gather_inputs(gen, dev, 1000))]
+
+    def upstream(V, P, C):
+        return (torch.randn(V, P, 3 + C, generator=gen).to(dev, dtype),
+                torch.randn(V, P, C, generator=gen).to(dev))
+    grads, errs = {}, {}
+    for case, args in cases.items():
+        check(args[1].dtype == dtype, f"{name} {case}: maps {args[1].dtype}")
+        grads[case] = upstream(*args[3].shape[:2], args[1].shape[3])
+        if case.endswith("shifted"):
+            grads[case] = tuple(shifted(g) for g in grads[case])
+        got = eg.epipolar_gather_backward_xy(*args, *grads[case])
+        want = eg.epipolar_gather_backward_xy_plain(*args, *grads[case])
+        torch.cuda.synchronize()
+        check(got.shape == args[3].shape and bool(torch.isfinite(got).all()),
+              f"{name} {case}: shape {tuple(got.shape)} or not finite")
+        scale = float(want.abs().max())
+        errs[case] = max_err(got, want)
+        check(errs[case] <= XY_RTOL * scale, f"{name} {case}: max err "
+              f"{errs[case]:.3e} beyond {XY_RTOL} of its scale {scale:.3e}")
+        if case == border:
+            half = args[3].shape[1] // 2
+            check(bool((got[:, :half, 0] == 0).all())
+                  and bool((got[:, half:, 1] == 0).all()),
+                  f"{name}: a clamped axis has a non-zero derivative")
+        log(f"{name} {case}: max_abs_err {errs[case]:.3e} vs the plain "
+            f"version on the card (scale {scale:.3e}, rtol {XY_RTOL})")
+
+    # through autograd: the same launch, xy alone and with the maps
+    args = cases[vol]
+    d_rgb, d_ray = grads[vol]
+    want = eg.epipolar_gather_backward_xy(*args, d_rgb, d_ray)
+    for with_maps in (False, True):
+        maps = [m.detach().requires_grad_(with_maps) for m in args[:3]]
+        xy = args[3].detach().requires_grad_()
+        with torch.enable_grad():
+            got = torch.autograd.grad(eg.epipolar_gather(*maps, xy, args[4]),
+                                      [xy, *maps[:with_maps * 3]],
+                                      (d_rgb, d_ray))
+        check(torch.equal(got[0], want), f"{name}: autograd.grad through "
+              f"epipolar_gather (maps too: {with_maps}) differs from the "
+              f"kernel's launch")
+
+    # inf and NaN upstream at invalid points: NaN in both coordinates there
+    args = cast(gather_inputs(gen, dev, 1000))
+    valid = args[4]
+    d_rgb, d_ray = upstream(VIEWS, 1000, args[1].shape[3])
+    bad = (~valid).nonzero()[:3]
+    d_rgb[bad[0, 0], bad[0, 1], 1] = float("inf")
+    d_rgb[bad[1, 0], bad[1, 1], 5] = -float("inf")
+    d_ray[bad[2, 0], bad[2, 1], 2] = float("nan")
+    got = eg.epipolar_gather_backward_xy(*args, d_rgb, d_ray)
+    want = eg.epipolar_gather_backward_xy_plain(*args, d_rgb, d_ray)
+    expect = torch.zeros_like(valid)
+    expect[bad[:, 0], bad[:, 1]] = True
+    check(torch.equal(got.isnan().all(-1), expect)
+          and torch.equal(got.isnan(), want.isnan()),
+          f"{name}: NaN points differ with non-finite upstream values at "
+          f"invalid points")
+    ok = ~expect
+    e = max_err(got[ok], want[ok])
+    check(e <= XY_RTOL * float(want[ok].abs().max()),
+          f"{name}: non-finite case max err {e:.3e}")
+    info = eg.backward_xy_kernel_info(dtype)
+    log(f"{name}: inf and NaN upstream at 3 invalid points give NaN in "
+        f"both of their coordinates and nowhere else; kernel as built "
+        f"{json.dumps(info)}")
+
+    times = {}
+    for case in (vol, planned, border):
+        args = cases[case]
+        d_rgb, d_ray = grads[case]
+        V, P = args[3].shape[:2]
+        C = args[1].shape[3]
+        d_xy = torch.empty(V, P, 2, device=dev)
+        # each input read once (the maps whole, as gather_bound counts
+        # them), d_xy written once; per (view, point) and channel of the
+        # two maps and the image: the masked upstream, two tap differences
+        # and their weighting per axis (float32 in both instances)
+        nbytes = (sum(t.numel() * t.element_size()
+                      for t in (*args, d_rgb, d_ray)) + d_xy.numel() * 4)
+        flops = V * P * (3 + 2 * C) * 16
+        times[case] = {
+            "ms": cuda_time(lambda: eg.epipolar_gather_backward_xy(
+                *args, d_rgb, d_ray)),
+            "kernel_ms": cuda_time(eg.backward_xy_launcher(
+                *args, d_rgb, d_ray, d_xy)),
+            "plain_ms": cuda_time(lambda: eg.epipolar_gather_backward_xy_plain(
+                *args, d_rgb, d_ray)),
+            "library_ms": cuda_time(gather_xy_library(args, (d_rgb, d_ray))),
+            **bound(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)}
+        log(f"{name} {case} (ms: the wrapper, its allocation included; "
+            f"kernel_ms: the bare launch): " + json.dumps(times[case]))
+    return {"name": name, "route": "cuda",
+            "source": "graspnerf_tpu_torch/csrc/epipolar_gather.cu",
+            "replaces": "graspnerf_tpu/ops/fused_gather.py:268",
+            "max_abs_err": errs[vol], **times[vol],
+            "planner_ms": times[planned]["ms"],
+            "planner_kernel_ms": times[planned]["kernel_ms"],
+            "planner_library_ms": times[planned]["library_ms"],
+            "planner_max_abs_err": errs[planned],
+            "border_kernel_ms": times[border]["kernel_ms"],
+            "border_max_abs_err": errs[border], **info}
+
+
+def xy_launches():
+    from graspnerf_tpu_torch.ops.epipolar_gather import (
+        epipolar_gather_backward_xy)
+    return epipolar_gather_backward_xy.launches
+
+
+def zero_xy_launches():
+    from graspnerf_tpu_torch.ops.epipolar_gather import (
+        epipolar_gather_backward_xy)
+    epipolar_gather_backward_xy.launches = 0
+
+
+# --------------------------------------------------- dataset -> train
+def run_dataset_train(dev, smi):
+    """The training path from the start: the port's writer
+    (`data.generate`, the entry point of `python3 -m
+    graspnerf_tpu_torch.data.generate`) at the shipped data shape -- 24
+    hemisphere views at 288 x 512, the 40^3 TSDF fused on the card, 40
+    executed grasp candidates a scene, procedural pile scenes of 4 objects
+    -- for GEN_SCENES scenes; the tree read back by `VGNSynDataset`; then
+    GEN_STEPS steps of `Trainer.run` on it through LOOP_WORKERS data
+    workers at the shipped training shape (512 rays x (40 + 40) samples,
+    the 40^3 volume, 32 grasps), 3 launches of each kernel a step; the
+    first batch's losses and gradients through the kernels against the
+    plain versions, and a written sample's with a positive grasp label
+    where the first batch draws none. Fails on a writer error, an empty
+    label file, scenes without a positive label or a ray traced by
+    numpy."""
+    import csv
+    import tempfile
+    from graspnerf_tpu_torch.data import (DatasetFactory, SceneLoader,
+                                          VGNSynDataset, hemisphere_poses,
+                                          to_device)
+    from graspnerf_tpu_torch.data.generate import generate
+    from graspnerf_tpu_torch.data.prefetch import PREFETCH_BATCHES
+    from graspnerf_tpu_torch.sim import objects
+    from graspnerf_tpu_torch.train import Trainer, create_train_state
+    from graspnerf_tpu_torch.train.trainer import scene
+
+    with tempfile.TemporaryDirectory() as root:
+        numpy_rays = objects.TRACES["numpy"]
+        t0 = time.perf_counter()
+        records = generate([root, "--scenes", str(GEN_SCENES), "--seed",
+                            str(GEN_SEED), "--executed-labels",
+                            "--grasp-candidates", str(GEN_CANDIDATES)])
+        wall = time.perf_counter() - t0
+        check(objects.TRACES["numpy"] == numpy_rays,
+              f"dataset: {objects.TRACES['numpy'] - numpy_rays} rays traced "
+              f"by numpy")
+        for r, sid in zip(records, (f"scene_{GEN_SEED:02d}_{i:04d}"
+                                    for i in range(GEN_SCENES))):
+            with open(f"{root}/grasps/{sid}.csv") as f:
+                rows = list(csv.DictReader(f))
+            check(len(rows) == r["grasps"] == GEN_CANDIDATES,
+                  f"dataset: {sid} has {len(rows)} labels")
+        parts = ("scene", "render", "tsdf", "labels", "write")
+        per_scene = {k: [round(r[k], 4) for r in records] for k in parts}
+        log(f"dataset: {GEN_SCENES} scenes of {len(hemisphere_poses())} "
+            f"views at {HEIGHT} x {WIDTH} written in {wall:.2f} s; seconds "
+            f"a scene by part (scene build and settling, render: host; "
+            f"tsdf: card; labels: {GEN_CANDIDATES} executed candidates, "
+            f"host; write: PNG, EXR, npy, npz, csv) " + json.dumps(per_scene)
+            + "; objects " + json.dumps([r["objects"] for r in records])
+            + ", positive labels "
+            + json.dumps([r["positive"] for r in records]))
+        check(sum(r["positive"] for r in records) > 0,
+              "dataset: no positive executed label in the written scenes")
+
+        kw = dict(root=root, sdf_root=f"{root}/sdf",
+                  grasp_root=f"{root}/grasps", n_rays=TRAIN_RAYS,
+                  n_grasps=TRAIN_GRASPS)
+        t0 = time.perf_counter()
+        first = VGNSynDataset(seed=SEED, **kw).sample()
+        read_s = time.perf_counter() - t0
+        shapes = {"imgs": first["data"]["ref"]["imgs"].shape,
+                  "sdf_gt": first["sdf_gt"].shape,
+                  "grasp_index": first["data"]["grasp_index"].shape}
+        check(shapes == {"imgs": (VIEWS, HEIGHT, WIDTH, 3),
+                         "sdf_gt": (RES,) * 3,
+                         "grasp_index": (TRAIN_GRASPS, 3)},
+              f"dataset: read back {shapes}")
+        check(bool(((first["sdf_gt"] > -1) & (first["sdf_gt"] < 1)).any()),
+              "dataset: the read-back TSDF has no surface band")
+        log(f"dataset: read back by VGNSynDataset, a sample in {read_s:.3f} "
+            f"s in this process: " + json.dumps(
+                {k: list(v) for k, v in shapes.items()}))
+
+        # a written sample with a positive label, for the comparison below
+        # where the loader's first batch draws none
+        positive = next((b for b in (VGNSynDataset(seed=SEED + k, **kw)
+                                     .sample() for k in range(64))
+                         if (b["grasp_label"] > 0).any()), None)
+        check(positive is not None, "dataset: 64 samples of the written "
+              "tree drew no positive grasp label")
+
+        factory = DatasetFactory(VGNSynDataset, **kw)
+        with tempfile.TemporaryDirectory() as workdir, SceneLoader(
+                factory, LOOP_WORKERS, seed=SEED, pin_memory=True) as loader:
+            trainer = Trainer(train_model(), FirstBatch(loader),
+                              workdir=workdir, log_every=1,
+                              val_interval=10 ** 9, save_interval=10 ** 9,
+                              seed=SEED, tensorboard=False, device=dev)
+            zero_counts()
+            t0 = time.perf_counter()
+            trainer.run(GEN_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = counts()
+            check(launches == {k: 3 * GEN_STEPS for k in launches},
+                  f"dataset train: launches {launches}, not 3 of each "
+                  f"kernel a step")
+            recs = [r for r in read_log(workdir) if "sec_per_step" in r]
+            check([r["step"] for r in recs] == list(range(1, GEN_STEPS + 1)),
+                  f"dataset train: logged steps {[r['step'] for r in recs]}")
+            for r in recs:
+                bad = [k for k, v in r.items() if isinstance(v, float)
+                       and not math.isfinite(v)]
+                check(not bad and r["nonfinite_grad"] == 0.0,
+                      f"dataset train: step {r['step']} not finite: {bad}")
+            batch = to_device(scene(trainer.train_iter.first, 0), dev)
+            rate = pipeline_scenes_per_s(loader)
+    # past the LOOP_WORKERS x PREFETCH_BATCHES batches queued at the start
+    queued = LOOP_WORKERS * PREFETCH_BATCHES
+    steady = {k: [r[k] for r in recs[queued:]]
+              for k in ("sec_per_step", "data_wait_per_step")}
+    log(f"dataset train: Trainer.run {GEN_STEPS} steps on the written tree "
+        f"in {wall:.2f} s wall (worker start included), launches "
+        f"{launches}; sec_per_step "
+        + json.dumps([r["sec_per_step"] for r in recs])
+        + ", data_wait_per_step "
+        + json.dumps([r.get("data_wait_per_step", float("nan"))
+                      for r in recs]) + f" ({LOOP_WORKERS} workers); steady "
+        f"state (steps {queued + 1}-{GEN_STEPS}, past the {LOOP_WORKERS} x "
+        f"{PREFETCH_BATCHES} queued batches): sec_per_step mean "
+        f"{np.mean(steady['sec_per_step'])}, data_wait_per_step mean "
+        f"{np.mean(steady['data_wait_per_step'])}; the loader alone "
+        f"{rate} scenes/s; {smi}")
+    kern, plain = (create_train_state(train_model(k), device=dev)
+                   for k in (True, False))
+    log("dataset train: the first batch (a written scene), kernels vs plain "
+        "versions:")
+    compare_train(kern, plain, batch, dev)
+    if not bool((batch["grasp_label"] > 0).any()):
+        log("dataset train: the first batch draws no positive grasp label; "
+            "a written sample that does, kernels vs plain versions:")
+        compare_train(kern, plain, to_device(positive, dev), dev)
+    return {"launches": launches, "steps": GEN_STEPS,
+            "per_scene": per_scene}
+
+
+def run_checkpoint_import(dev, inputs):
+    """The reference-checkpoint import: a reference-format model_best.pth
+    (network_state_dict in torch layout with one dead buffer, step, an
+    empty optimizer_state_dict) written from planner_params(), imported by
+    `python3 -m graspnerf_tpu_torch.convert`; the float32 planner through
+    the kernels on the imported weights, its volume bit-equal to the
+    volume on the original weights. Returns that volume."""
+    import tempfile
+    from graspnerf_tpu_torch.detect.planner import GraspNeRFPlanner
+    from graspnerf_tpu_torch.train.checkpoint import load_params
+    sd = planner_params()
+    dead = "nr_net.init_net.bn.num_batches_tracked"
+    with tempfile.TemporaryDirectory() as d:
+        torch.save({"network_state_dict": {**sd, dead: torch.tensor(3)},
+                    "step": 7, "optimizer_state_dict": {}},
+                   f"{d}/model_best.pth")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "graspnerf_tpu_torch.convert",
+             f"{d}/model_best.pth", f"{d}/port.pt"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        check(out.returncode == 0, f"checkpoint import failed: "
+              f"{out.stderr[-2000:]}")
+        check("1 unused torch keys" in out.stdout and dead in out.stdout,
+              f"checkpoint import: the dead buffer was not reported: "
+              f"{out.stdout[-500:]}")
+        imported = load_params(f"{d}/port.pt")
+    check(sorted(imported) == sorted(sd) and all(
+        torch.equal(imported[k], v) for k, v in sd.items()),
+        "checkpoint import: the imported weights differ")
+    vols = [GraspNeRFPlanner(p, device=dev).core(*inputs)[0]
+            for p in (sd, imported)]
+    check(torch.equal(vols[0], vols[1]), f"checkpoint import: the planner's "
+          f"volume on the imported weights differs by "
+          f"{max_err(vols[0], vols[1]):.3e}")
+    log(f"checkpoint import: python3 -m graspnerf_tpu_torch.convert in "
+        f"{cli_s:.2f} s ({len(imported)} tensors, the dead buffer reported "
+        f"unused); the float32 planner through the kernels on the imported "
+        f"weights: volume bit-equal to the original weights'")
+    return vols[1]
+
+
+def run_mesh(vol):
+    """`ops.mesh.volume_to_mesh` on the planner's volume (host)."""
+    from graspnerf_tpu_torch.ops.mesh import volume_to_mesh
+    t0 = time.perf_counter()
+    verts, faces = volume_to_mesh(vol.cpu().numpy(),
+                                  origin=(-0.15, -0.15, -0.05))
+    ms = (time.perf_counter() - t0) * 1e3
+    check(len(faces) > 0 and bool(np.isfinite(verts).all()),
+          "mesh: no surface in the planner's volume")
+    log(f"mesh: volume_to_mesh on the planner's {RES}^3 volume: "
+        f"{len(verts)} vertices, {len(faces)} faces, {ms:.1f} ms host")
+
+
 def backward_launch_events(dev):
     """CUDA launches (kernels and memsets) of one bare call of each
     instance of the gather's backward, B' and B'-bf16, at P = 64,000, as
@@ -2529,6 +2929,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     gen = torch.Generator().manual_seed(SEED)
+    zero_xy_launches()
     events = backward_launch_events(dev)
     planner, launches, inputs = run_planner(dev)
     planner16, launches16 = run_planner_bf16(dev, inputs, planner)
@@ -2549,6 +2950,13 @@ def main() -> int:
           f"bfloat16 launches in the float32 train loop: {bf16_counts()[0]}")
     train16 = run_train_bf16(dev)
     closed = run_closed_loop(dev, planner_params())
+    dataset = run_dataset_train(dev, smi)
+    run_mesh(run_checkpoint_import(dev, inputs))
+    # no path of either package asks for the gradient with respect to xy
+    # (the cameras and samples carry none): 0 launches in every phase above
+    xy_path = xy_launches()
+    check(xy_path == 0, f"the gather's xy gradient was launched {xy_path} "
+          f"times on the paths")
     args, args16 = render["args"], render16["args"]
     rows = [check_view_fuse(dev, gen, args["view_fuse"]),
             check_gather(dev, gen, planner, inputs, args["epipolar_gather"]),
@@ -2560,6 +2968,8 @@ def main() -> int:
               check_gather_backward_bf16(
                   dev, gen, planner16, inputs, train16["args"],
                   events["epipolar_gather_backward_bf16"])]
+    rows_xy = [check_gather_backward_xy(dev, gen, planner, inputs),
+               check_gather_backward_xy(dev, gen, planner16, inputs, BF16)]
     phases = phase_times(planner, inputs)
     log("phases (median, min, max of 20) " + json.dumps(phases))
     phases16 = phase_times(planner16, inputs)
@@ -2593,10 +3003,19 @@ def main() -> int:
         # the closed loop's planning calls, one a grasp attempt
         row["closed_loop_launches"] = closed["launches"][name]
         row["closed_loop_calls"] = closed["calls"]
+        # Trainer.run on the written dataset
+        row["dataset_train_launches"] = dataset["launches"][name]
+        row["dataset_train_steps"] = dataset["steps"]
+    for row in rows_xy:
+        # reached by torch.autograd.grad with respect to xy only: no path
+        for k in ("launches", "render_launches", "forward_launches",
+                  "train_launches", "loop_launches", "closed_loop_launches",
+                  "dataset_train_launches"):
+            row[k] = xy_path
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "render_launches", "train_launches", "loop_launches")
-    rows += rows16
+    rows += rows16 + rows_xy
     for row in rows:
         check(all(k in row for k in keys), f"{row['name']}: a key is missing")
     log(json.dumps({"kernels": [

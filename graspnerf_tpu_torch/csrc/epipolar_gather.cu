@@ -47,8 +47,8 @@
 // to the maps: for every (view, point, channel) the upstream gradient times
 // the mask, times each of the four tap weights, summed at that tap's map
 // cell (JAX sums with one-hot matmuls because XLA:TPU serialises
-// scatter-add). The gradient with respect to xy is not computed (no path
-// needs it: the points carry no gradient). Upstream: d_rgb_feats [V,P,3+C]
+// scatter-add). The gradient with respect to xy is its own kernel, at the
+// end of this file. Upstream: d_rgb_feats [V,P,3+C]
 // (its channels 0..2 go to the RGB image, 3.. to img_feats) and d_ray_feats
 // [V,P,C]; outputs d_img_feats, d_ray_feats [V,fh,fw,C], every cell written
 // once (no zeroing), and, only when asked for, d_imgs [V,H,W,3].
@@ -1311,4 +1311,197 @@ extern "C" int epipolar_gather_backward_info(int* out) {
 }
 extern "C" int epipolar_gather_backward_bf16_info(int* out) {
   return backward_info<bf16, float, bf16>(out);
+}
+
+// ------------------------------------------------- gradient with respect to xy
+// Replaces: the xy cotangent of `_feg_bwd` (graspnerf_tpu/ops/fused_gather.py
+// :260-270), the VJP at :268 of `_interp_from_win` (:95-180) with respect to
+// xy. For every (view v, point p): the a.e. derivative of the three bilinear
+// samples with respect to (x, y), contracted with the upstream gradients
+// d_rgb_feats [V,P,3+C] and d_ray_feats [V,P,C] -> d_xy [V,P,2] float32.
+// floor and the border clamps carry no gradient: along an axis whose two
+// taps were clamped onto one row (column) the difference of the taps is
+// exactly 0, as JAX's folded weights' (1 - w) + w cancel. The chain factors
+// are dxq/dx = fw/(w-1) on the feature maps (align_corners=False) and
+// dxf/dx = (W-1)/(w-1) on the image (align_corners=True), applied as JAX's
+// VJP applies them: 0.5 * fw and 0.5 * (W-1) into d(xn), then 2 / (w-1).
+// Everything is times the mask: a non-finite upstream value at an invalid
+// point gives NaN, as JAX's g * 0 does.
+// Design: kLanes (8) lanes per point, four points a warp, as the forward's
+// phase 2: a lane owns four channels of both maps (float4 reads of the four
+// taps of each, 8 bytes in bfloat16) and the point's d_ray_feats row (one
+// float4); lanes 0-2 also one colour channel of the image. Each lane
+// computes the point's taps and weights (`make_point`'s, so the forward's
+// to the bit); its partial sums meet in a shuffle reduction over the
+// point's lanes. Maps or d_ray_feats that are not 16-byte aligned, or
+// C % 4 != 0, take float reads.
+// Bound: bytes (the upstream rows; the maps' taps stay in L2).
+// bfloat16 instance: the maps and d_rgb_feats in bfloat16, widened exactly
+// to float32 (JAX promotes the window before the weighted sum), d_ray_feats
+// float32; all arithmetic float32.
+namespace {
+
+constexpr int kXyWarps = 8;                        // warps a block
+constexpr int kXyPoints = kXyWarps * 32 / kLanes;  // points a block
+
+// d(sample)/d(px) and d(sample)/d(py) of one channel from its four taps
+__device__ __forceinline__ float2 slopes(float v00, float v01, float v10,
+                                         float v11, const Point& q) {
+  return make_float2((v01 - v00) * q.owy + (v11 - v10) * q.wy,
+                     (v10 - v00) * q.owx + (v11 - v01) * q.wx);
+}
+
+// g . slopes of channels c.. of `map` at q's taps, added into acc (x, y)
+template <bool kVec, typename T>
+__device__ __forceinline__ void add_slopes(const T* __restrict__ map,
+                                           const Point& q, int c, int n,
+                                           const float* g, float2& acc) {
+  const T* t = map + q.o00 + c;
+  if (kVec) {
+    const float4 a = load4(t), b = load4(t + q.dx), d = load4(t + q.dy),
+                 e = load4(t + q.dy + q.dx);
+    const float2 s0 = slopes(a.x, b.x, d.x, e.x, q);
+    const float2 s1 = slopes(a.y, b.y, d.y, e.y, q);
+    const float2 s2 = slopes(a.z, b.z, d.z, e.z, q);
+    const float2 s3 = slopes(a.w, b.w, d.w, e.w, q);
+    acc.x += g[0] * s0.x + g[1] * s1.x + g[2] * s2.x + g[3] * s3.x;
+    acc.y += g[0] * s0.y + g[1] * s1.y + g[2] * s2.y + g[3] * s3.y;
+  } else {
+    for (int j = 0; j < n; ++j) {
+      const float2 sj = slopes(
+          to_f(__ldg(t + j)), to_f(__ldg(t + q.dx + j)),
+          to_f(__ldg(t + q.dy + j)), to_f(__ldg(t + q.dy + q.dx + j)), q);
+      acc.x += g[j] * sj.x;
+      acc.y += g[j] * sj.y;
+    }
+  }
+}
+
+template <bool kVec, typename T>
+__global__ void __launch_bounds__(32 * kXyWarps)
+xy_grad_kernel(const T* __restrict__ imgs, const T* __restrict__ img_feats,
+               const T* __restrict__ ray_feats, const float* __restrict__ xy,
+               const unsigned char* __restrict__ valid,
+               const T* __restrict__ d_rgb, const float* __restrict__ d_ray,
+               float* __restrict__ d_xy, int P, int H, int W, int fh, int fw,
+               int C) {
+  const int l = threadIdx.x % kLanes, c = 4 * l;
+  const int p = blockIdx.x * kXyPoints + threadIdx.x / kLanes;
+  {   // this block's view
+    const size_t v = blockIdx.y, vp = v * P;
+    const size_t map = v * fh * fw * C;
+    imgs += v * H * W * 3;
+    img_feats += map;
+    ray_feats += map;
+    xy += 2 * vp;
+    valid += vp;
+    d_rgb += vp * (3 + C);
+    d_ray += vp * C;
+    d_xy += 2 * vp;
+  }
+  float2 q_acc = make_float2(0.0f, 0.0f), f_acc = q_acc;
+  if (p < P) {   // the same for all lanes of the point
+    const float m = valid[p] ? 1.0f : 0.0f;
+    const float2 n = normalised(xy, p, H, W);
+    if (c < C) {   // the feature maps: the masked upstream, then slopes
+      const int k = min(4, C - c);
+      float gi[4], gr[4];
+      const T* up = d_rgb + p * (3 + C) + 3 + c;
+      for (int j = 0; j < 4; ++j) gi[j] = j < k ? to_f(up[j]) * m : 0.0f;
+      if (kVec) {
+        const float4 r = ld4(d_ray + p * C + c);
+        gr[0] = r.x * m;
+        gr[1] = r.y * m;
+        gr[2] = r.z * m;
+        gr[3] = r.w * m;
+      } else {
+        for (int j = 0; j < 4; ++j)
+          gr[j] = j < k ? d_ray[p * C + c + j] * m : 0.0f;
+      }
+      const Point q = quarter_point(n, fh, fw, C, m);
+      add_slopes<kVec>(img_feats, q, c, k, gi, q_acc);
+      add_slopes<kVec>(ray_feats, q, c, k, gr, q_acc);
+    }
+    if (l < 3) {   // the image: one colour channel a lane
+      const float g = to_f(d_rgb[p * (3 + C) + l]) * m;
+      add_slopes<false>(imgs, full_point(n, H, W, m), l, 1, &g, f_acc);
+    }
+  }
+  // into d(xn), d(yn): the quarter-res maps' and the image's chain factors
+  float dx = q_acc.x * (0.5f * static_cast<float>(fw)) +
+             f_acc.x * (0.5f * static_cast<float>(W - 1));
+  float dy = q_acc.y * (0.5f * static_cast<float>(fh)) +
+             f_acc.y * (0.5f * static_cast<float>(H - 1));
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o /= 2) {
+    dx += __shfl_xor_sync(0xffffffffu, dx, o, kLanes);
+    dy += __shfl_xor_sync(0xffffffffu, dy, o, kLanes);
+  }
+  if (l == 0 && p < P) {
+    d_xy[2 * p] = dx * 2.0f / static_cast<float>(W - 1);
+    d_xy[2 * p + 1] = dy * 2.0f / static_cast<float>(H - 1);
+  }
+}
+
+template <typename T>
+int backward_xy(const T* imgs, const T* img_feats, const T* ray_feats,
+                const float* xy, const unsigned char* valid, const T* d_rgb,
+                const float* d_ray, float* d_xy, int V, int P, int H, int W,
+                int fh, int fw, int C, cudaStream_t stream) {
+  if (V == 0 || P == 0) return 0;
+  if (C > 4 * kLanes) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((P + kXyPoints - 1) / kXyPoints, V);
+  // vector reads of four channels
+  const size_t v4 = 4 * sizeof(T);
+  const bool vec = C % 4 == 0 && aligned(img_feats, v4) &&
+                   aligned(ray_feats, v4) && aligned(d_ray, 16);
+  const auto kernel = vec ? xy_grad_kernel<true, T> : xy_grad_kernel<false, T>;
+  kernel<<<grid, 32 * kXyWarps, 0, stream>>>(imgs, img_feats, ray_feats, xy,
+                                             valid, d_rgb, d_ray, d_xy, P, H,
+                                             W, fh, fw, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int backward_xy_info(int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, xy_grad_kernel<true, T>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
+}
+
+}  // namespace
+
+// d_xy [V,P,2] (float32, every element written) of the gather at xy: the
+// forward's maps, coordinates and mask, the upstream d_rgb [V,P,3+C] in the
+// maps' type and d_ray [V,P,C] float32. The forward's 32-bit limits; C <= 32.
+extern "C" int epipolar_gather_backward_xy(
+    const float* imgs, const float* img_feats, const float* ray_feats,
+    const float* xy, const unsigned char* valid, const float* d_rgb,
+    const float* d_ray, float* d_xy, int V, int P, int H, int W, int fh,
+    int fw, int C, cudaStream_t stream) {
+  return backward_xy(imgs, img_feats, ray_feats, xy, valid, d_rgb, d_ray,
+                     d_xy, V, P, H, W, fh, fw, C, stream);
+}
+
+// The bfloat16 instance: bfloat16 maps and d_rgb, the rest as above.
+extern "C" int epipolar_gather_backward_xy_bf16(
+    const bf16* imgs, const bf16* img_feats, const bf16* ray_feats,
+    const float* xy, const unsigned char* valid, const bf16* d_rgb,
+    const float* d_ray, float* d_xy, int V, int P, int H, int W, int fh,
+    int fw, int C, cudaStream_t stream) {
+  return backward_xy(imgs, img_feats, ray_feats, xy, valid, d_rgb, d_ray,
+                     d_xy, V, P, H, W, fh, fw, C, stream);
+}
+
+// The xy kernel's `dtype` instance as built (0 float32, 1 bfloat16), its
+// vector path: registers a thread, spilled (local) bytes a thread, static
+// shared memory.
+extern "C" int epipolar_gather_backward_xy_info(int bf16_instance, int* out) {
+  return bf16_instance ? backward_xy_info<bf16>(out)
+                       : backward_xy_info<float>(out);
 }

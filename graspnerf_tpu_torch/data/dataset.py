@@ -131,8 +131,8 @@ class VGNSynDataset:
         ref_ids, que_id = get_ref_que_ids(rng, min(TOTAL_VIEWS, len(db)),
                                           self.n_views)
 
-        imgs = np.stack([db.get_image(i) for i in ref_ids])
-        que_img = db.get_image(que_id)[None]
+        views = db.get_images(list(ref_ids) + [que_id])
+        imgs, que_img = views[:-1], views[-1:]
         poses = np.stack([db.get_pose(i) for i in ref_ids])
         Ks = np.stack([db.get_K(i) for i in ref_ids])
         dr = np.stack([db.get_depth_range(i) for i in ref_ids])

@@ -18,11 +18,15 @@ port of `_feg_bwd`, fused_gather.py:260-270): the maps' gradients, and the
 RGB image's only when `imgs` requires one. It pulls rather than scatters:
 points are indexed by the map tiles their taps reach, then each map cell
 sums its contributions in a fixed order and is written once, so the
-gradients are deterministic (csrc/epipolar_gather.cu). The gradient with
-respect to `xy` is not ported (ROADMAP Queue 2): no path needs it, and the
-wrapper raises if xy requires one. On float32 CPU tensors autograd
-differentiates the plain version, which is also the backward's plain
-version (`epipolar_gather_backward_plain`).
+gradients are deterministic (csrc/epipolar_gather.cu). When `xy` requires
+a gradient the backward also launches `epipolar_gather_backward_xy`, the
+xy cotangent of `_feg_bwd` (fused_gather.py:268): the a.e. derivative of
+the three bilinear samples with respect to each point's coordinates,
+contracted with the upstream gradients. No path of the system asks for it
+(the cameras and samples carry no gradient); `torch.autograd.grad(outputs,
+xy)` reaches it. On float32 CPU tensors autograd differentiates the plain
+version, which is also the backward's plain version
+(`epipolar_gather_backward_plain`, `epipolar_gather_backward_xy_plain`).
 
 bfloat16: with the three maps in bfloat16 (`pack_feature_maps(dtype)`,
 fused_gather.py:43-64) the kernel's bfloat16 instance reads them, weighs
@@ -65,23 +69,16 @@ def _needs_grad(*maps) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in maps)
 
 
-def _refuse_xy_grad(xy) -> None:
-    if xy.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the gather's gradient with respect to xy is not ported: "
-            "ROADMAP Queue 2")
-
-
 def epipolar_gather_plain(imgs, img_feats, ray_feats, xy, valid):
     """Plain PyTorch version: three border-clamped bilinear fetches.
     imgs [V,H,W,3], img_feats/ray_feats [V,H/4,W/4,C] of one dtype, xy
     [V,P,2] full-res pixel coords, valid [V,P] -> (rgb_feats [V,P,3+C] in
     the maps' dtype, ray_feats [V,P,C] float32), interpolated in float32. In
     float32 autograd differentiates it; bfloat16 maps that require a
-    gradient take `_feg_bwd`'s arithmetic (`epipolar_gather_backward_plain`),
-    and xy no gradient."""
-    if img_feats.dtype == BF16 and _needs_grad(imgs, img_feats, ray_feats):
-        _refuse_xy_grad(xy)
+    gradient take `_feg_bwd`'s arithmetic (`epipolar_gather_backward_plain`,
+    and `epipolar_gather_backward_xy_plain` for xy)."""
+    if img_feats.dtype == BF16 and _needs_grad(imgs, img_feats, ray_feats,
+                                               xy):
         return _GatherFn.apply(True, imgs, img_feats, ray_feats, xy, valid)
     return _plain(imgs, img_feats, ray_feats, xy, valid)
 
@@ -105,6 +102,14 @@ def library() -> ctypes.CDLL:
         lib.epipolar_gather_backward_bf16.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.epipolar_gather_backward_bf16.restype = ctypes.c_int
+        for name in ("epipolar_gather_backward_xy",
+                     "epipolar_gather_backward_xy_bf16"):
+            getattr(lib, name).argtypes = (
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            getattr(lib, name).restype = ctypes.c_int
+        lib.epipolar_gather_backward_xy_info.argtypes = [ctypes.c_int,
+                                                         ctypes.c_void_p]
+        lib.epipolar_gather_backward_xy_info.restype = ctypes.c_int
         lib.epipolar_gather_backward_scratch.argtypes = [ctypes.c_int] * 4
         lib.epipolar_gather_backward_scratch.restype = ctypes.c_longlong
         for name in ("epipolar_gather_backward_info",
@@ -401,16 +406,128 @@ def epipolar_gather_backward(xy, valid, d_rgb, d_ray, imgs_shape, maps_shape,
             d_ray_feats)
 
 
+def _slopes(fmap, px, py):
+    """d/dpx and d/dpy of the border-clamped bilinear sample of fmap
+    [V,h,w,c] at pixel coords px, py [V,P] (float32 values, floor and the
+    clamps without gradient) -> two [V,P,c] float32: the differences of
+    the taps, each weighted by the other axis' weights."""
+    V, h, w, c = fmap.shape
+    flat = fmap.reshape(V, h * w, c)
+    x0, y0 = torch.floor(px), torch.floor(py)
+    wx, wy = (px - x0)[..., None], (py - y0)[..., None]
+    xi, yi = x0.to(torch.int64), y0.to(torch.int64)
+
+    def tap(x, y):
+        idx = y.clamp(0, h - 1) * w + x.clamp(0, w - 1)
+        return torch.gather(flat, 1, idx[..., None].expand(-1, -1, c)).float()
+
+    v00, v01 = tap(xi, yi), tap(xi + 1, yi)
+    v10, v11 = tap(xi, yi + 1), tap(xi + 1, yi + 1)
+    return ((v01 - v00) * (1 - wy) + (v11 - v10) * wy,
+            (v10 - v00) * (1 - wx) + (v11 - v01) * wx)
+
+
+def epipolar_gather_backward_xy_plain(imgs, img_feats, ray_feats, xy, valid,
+                                      d_rgb, d_ray):
+    """Plain version of the gradient with respect to xy: the xy cotangent of
+    `_feg_bwd` (fused_gather.py:268), the VJP of `_interp_from_win`
+    (:95-180) written out. The gather's maps (either dtype, read widened to
+    float32 as JAX promotes the window), xy [V,P,2], valid [V,P] and the
+    upstream d_rgb [V,P,3+C], d_ray [V,P,C] -> d_xy [V,P,2] float32. Per
+    axis, the tap differences weighted by the other axis' weights (0 where
+    the border clamps both taps onto one row or column: JAX's folded
+    weights cancel there), contracted with the masked upstream (g * 0 is
+    NaN where g is not finite, as in JAX), through dxq/dx = fw/(w-1) for
+    the feature maps and dxf/dx = (W-1)/(w-1) for the image."""
+    V, H, W, _ = imgs.shape
+    fh, fw = img_feats.shape[1:3]
+    xy = xy.detach()
+    m = valid.to(F32)[..., None]
+    g_rgb = d_rgb[..., :3].float() * m
+    g_img, g_ray = d_rgb[..., 3:].float() * m, d_ray.float() * m
+    xn = xy[..., 0] / xy.new_tensor(W - 1) * 2 - 1
+    yn = xy[..., 1] / xy.new_tensor(H - 1) * 2 - 1
+    qx, qy = ((xn + 1.0) * fw - 1.0) * 0.5, ((yn + 1.0) * fh - 1.0) * 0.5
+    (ix, iy), (rx, ry) = (_slopes(f, qx, qy) for f in (img_feats, ray_feats))
+    fx, fy = (xn + 1.0) * 0.5 * (W - 1), (yn + 1.0) * 0.5 * (H - 1)
+    cx, cy = _slopes(imgs, fx, fy)
+    d_xn = (((g_img * ix).sum(-1) + (g_ray * rx).sum(-1)) * (0.5 * fw)
+            + (g_rgb * cx).sum(-1) * (0.5 * (W - 1)))
+    d_yn = (((g_img * iy).sum(-1) + (g_ray * ry).sum(-1)) * (0.5 * fh)
+            + (g_rgb * cy).sum(-1) * (0.5 * (H - 1)))
+    return torch.stack([d_xn * 2 / xy.new_tensor(W - 1),
+                        d_yn * 2 / xy.new_tensor(H - 1)], -1)
+
+
+def backward_xy_launcher(imgs, img_feats, ray_feats, xy, valid, d_rgb, d_ray,
+                         d_xy):
+    """Check the CUDA tensors once (`_check`: d_rgb has rgb_feats' dtype,
+    the maps', and d_ray ray_feats', float32) and return a call that
+    launches `epipolar_gather_backward_xy` (or its bfloat16 instance, as
+    the maps' dtype says), writing every element of d_xy [V,P,2] float32:
+    the wrapper's launch and the bare launch chip_smoke.py times. Each call
+    counts one launch."""
+    _check(imgs, img_feats, ray_feats, xy, valid, d_rgb, d_ray)
+    if d_xy.shape != xy.shape or d_xy.dtype != F32 or not (
+            d_xy.is_contiguous() and d_xy.device == xy.device):
+        raise ValueError("d_xy must be a contiguous float32 tensor of xy's "
+                         "shape on its device")
+    V, H, W, _ = imgs.shape
+    _, fh, fw, C = img_feats.shape
+    tensors = (imgs, img_feats, ray_feats, xy, valid, d_rgb, d_ray, d_xy)
+    args = [t.data_ptr() for t in tensors] + [V, xy.shape[1], H, W, fh, fw, C]
+    lib = library()
+    fn = (lib.epipolar_gather_backward_xy_bf16 if img_feats.dtype == BF16
+          else lib.epipolar_gather_backward_xy)
+    device = xy.device
+
+    def launch():
+        with torch.cuda.device(device):
+            status = fn(*args, torch.cuda.current_stream().cuda_stream)
+        build.check(status, "epipolar_gather_backward_xy")
+        epipolar_gather_backward_xy.launches += 1
+        return tensors[7]   # the closure keeps all eight alive
+
+    return launch
+
+
+def epipolar_gather_backward_xy(imgs, img_feats, ray_feats, xy, valid, d_rgb,
+                                d_ray):
+    """The gradient with respect to xy: the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors. Arguments and result as
+    `epipolar_gather_backward_xy_plain`; on the card d_rgb is taken in the
+    maps' dtype and d_ray in float32 (the gather's output dtypes)."""
+    if xy.device.type == "cpu":
+        return epipolar_gather_backward_xy_plain(imgs, img_feats, ray_feats,
+                                                 xy, valid, d_rgb, d_ray)
+    if xy.device.type != "cuda":
+        raise ValueError(f"no gather backward for device {xy.device}")
+    d_xy = torch.empty(xy.shape, dtype=F32, device=xy.device)
+    return backward_xy_launcher(imgs, img_feats, ray_feats, xy, valid,
+                                d_rgb.contiguous(), d_ray.contiguous(),
+                                d_xy)()
+
+
+def backward_xy_kernel_info(dtype=F32) -> dict:
+    """The xy kernel's `dtype` instance as built: registers, spilled (local)
+    bytes and static shared memory a thread block."""
+    out = (ctypes.c_int * 3)()
+    build.check(library().epipolar_gather_backward_xy_info(
+        int(dtype == BF16), out), "epipolar_gather_backward_xy_info")
+    return dict(zip(("registers", "spill_bytes", "static_smem"), out))
+
+
 class _GatherFn(torch.autograd.Function):
-    """The gather with the maps' gradients (and the image's when it requires
-    one); xy and valid get none.
+    """The gather with the maps' gradients (the image's when it requires
+    one) and xy's when it requires one; valid gets none.
     plain: forward and backward are the plain versions (`use_kernels=False`
     on the card, and bfloat16 on the CPU); else the kernel forward and the
-    backward wrapper."""
+    backward wrappers."""
 
     @staticmethod
     def forward(ctx, plain, imgs, img_feats, ray_feats, xy, valid):
-        ctx.save_for_backward(xy, valid)
+        maps = (imgs, img_feats, ray_feats) if xy.requires_grad else ()
+        ctx.save_for_backward(xy, valid, *maps)
         ctx.shapes = (imgs.shape, img_feats.shape)
         ctx.plain, ctx.dtype = plain, img_feats.dtype
         fn = _plain if plain else _launch
@@ -419,29 +536,37 @@ class _GatherFn(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, d_rgb, d_ray):
-        xy, valid = ctx.saved_tensors
-        need = ctx.needs_input_grad[1:4]
-        if ctx.plain:
-            d_imgs, d_img_feats, d_ray_feats = epipolar_gather_backward_plain(
-                *ctx.shapes, xy, valid, d_rgb, d_ray, need[0], ctx.dtype)
-        else:
-            d_imgs, d_img_feats, d_ray_feats = epipolar_gather_backward(
-                xy, valid, d_rgb, d_ray, *ctx.shapes, need[0], ctx.dtype)
+        xy, valid, *maps = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:5]
+        d_imgs = d_img_feats = d_ray_feats = d_xy = None
+        if any(need[:3]):
+            if ctx.plain:
+                d_imgs, d_img_feats, d_ray_feats = (
+                    epipolar_gather_backward_plain(
+                        *ctx.shapes, xy, valid, d_rgb, d_ray, need[0],
+                        ctx.dtype))
+            else:
+                d_imgs, d_img_feats, d_ray_feats = epipolar_gather_backward(
+                    xy, valid, d_rgb, d_ray, *ctx.shapes, need[0], ctx.dtype)
+        if need[3]:
+            fn = (epipolar_gather_backward_xy_plain if ctx.plain
+                  else epipolar_gather_backward_xy)
+            d_xy = fn(*maps, xy, valid, d_rgb, d_ray)
         return (None, d_imgs, d_img_feats if need[1] else None,
-                d_ray_feats if need[2] else None, None, None)
+                d_ray_feats if need[2] else None, d_xy, None)
 
 
 def epipolar_gather(imgs, img_feats, ray_feats, xy, valid):
     """Gather wrapper: the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors. Same arguments and results as `epipolar_gather_plain`;
     differentiable with respect to the three maps, in float32 and in
-    bfloat16 (`epipolar_gather_backward`)."""
+    bfloat16 (`epipolar_gather_backward`), and with respect to xy
+    (`epipolar_gather_backward_xy`)."""
     if imgs.device.type == "cpu":
         return epipolar_gather_plain(imgs, img_feats, ray_feats, xy, valid)
     if imgs.device.type != "cuda":
         raise ValueError(f"no gather for device {imgs.device}")
-    _refuse_xy_grad(xy)
-    if imgs.dtype == BF16 and not _needs_grad(imgs, img_feats, ray_feats):
+    if imgs.dtype == BF16 and not _needs_grad(imgs, img_feats, ray_feats, xy):
         return _launch(imgs, img_feats, ray_feats, xy, valid)
     return _GatherFn.apply(False, imgs, img_feats, ray_feats, xy, valid)
 
@@ -451,3 +576,4 @@ epipolar_gather.launches = 0
 epipolar_gather.bf16_launches = 0
 epipolar_gather_backward.launches = 0
 epipolar_gather_backward.bf16_launches = 0
+epipolar_gather_backward_xy.launches = 0

@@ -238,8 +238,9 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     """No module of the port, nor chip_smoke.py, names jax, flax, optax or
-    the JAX package; and importing the port, its train step, data pipeline
-    and entry script included, loads none of them."""
+    the JAX package; and importing the port, its train step, data pipeline,
+    dataset writer, checkpoint import, mesh tools and entry script
+    included, loads none of them."""
     banned = ("jax", "jaxlib", "flax", "optax", "graspnerf_tpu")
     files = sorted((REPO / "graspnerf_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -248,7 +249,9 @@ def test_port_imports_no_jax():
             assert mod.split(".")[0] not in banned, (f, mod)
     code = ("import sys, graspnerf_tpu_torch.detect.planner, "
             "graspnerf_tpu_torch.train, graspnerf_tpu_torch.build, "
-            "graspnerf_tpu_torch.data, graspnerf_tpu_torch.train.cli; "
+            "graspnerf_tpu_torch.data, graspnerf_tpu_torch.train.cli, "
+            "graspnerf_tpu_torch.data.generate, graspnerf_tpu_torch.convert, "
+            "graspnerf_tpu_torch.ops.mesh; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {banned}]; "
             "assert not bad, bad")
     path = os.pathsep.join(filter(None, [str(REPO),

@@ -40,25 +40,32 @@ def _cand_set(cand):
     return {tuple(i): (s, r, w) for i, s, r, w in rows}
 
 
-def test_planner_core_matches_jax():
+@pytest.fixture(scope="module")
+def jax_core():
+    """JAX's GraspNeRFPlanner.core on the seeded weights and _scene(): the
+    volume, the candidates and the head outputs recomputed on its own
+    volume (one JAX compile for the module)."""
     params = graspnerf_params()
-    cfg = {"volume_resolution": RES}
-    scene = _scene()
-    jp = JaxPlanner(params, renderer_cfg=cfg, qual_threshold=QUAL_THRESHOLD)
-    vol_j, cand_j, _ = jp.core(*scene)
-    # the JAX planner's head outputs, recomputed on its own volume
-    qual_j, rot_j, width_j = jp.model.apply(
-        {"params": params}, vol_j[None, ..., None],
-        method=lambda m, v: m.vgn_net(v))
+    jp = JaxPlanner(params, renderer_cfg={"volume_resolution": RES},
+                    qual_threshold=QUAL_THRESHOLD)
+    vol_j, cand_j, _ = jp.core(*_scene())
+    heads = jp.model.apply({"params": params}, vol_j[None, ..., None],
+                           method=lambda m, v: m.vgn_net(v))
+    return vol_j, cand_j, heads
 
-    tp = GraspNeRFPlanner(flax_to_state_dict(params), device="cpu",
-                          renderer_cfg=cfg, qual_threshold=QUAL_THRESHOLD)
-    vol_t, cand_t, _ = tp.core(*scene)
+
+def assert_core_matches_jax(state_dict, jax_core):
+    """The port's planner on `state_dict` against JAX's, within ATOL."""
+    vol_j, cand_j, heads_j = jax_core
+    tp = GraspNeRFPlanner(state_dict, device="cpu",
+                          renderer_cfg={"volume_resolution": RES},
+                          qual_threshold=QUAL_THRESHOLD)
+    vol_t, cand_t, _ = tp.core(*_scene())
     assert vol_t.shape == (RES,) * 3
     np.testing.assert_allclose(vol_t.numpy(), np.asarray(vol_j), atol=ATOL)
     with torch.no_grad():
         heads = tp.model.vgn_net(vol_t[None, ..., None])
-    for got, want in zip(heads, (qual_j, rot_j, width_j)):
+    for got, want in zip(heads, heads_j):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
     got, want = _cand_set(cand_t), _cand_set(cand_j)
@@ -68,6 +75,24 @@ def test_planner_core_matches_jax():
         np.testing.assert_allclose(got[key][0], score, atol=ATOL)
         np.testing.assert_allclose(got[key][1], rot, atol=ATOL)
         np.testing.assert_allclose(got[key][2], width, atol=ATOL)
+
+
+def test_planner_core_matches_jax(jax_core):
+    assert_core_matches_jax(flax_to_state_dict(graspnerf_params()), jax_core)
+
+
+def test_planner_on_imported_checkpoint_matches_jax(jax_core, tmp_path):
+    """The planner on a reference-format model_best.pth of the same weights
+    imported by `python3 -m graspnerf_tpu_torch.convert` (its `main`) and
+    read by `load_params`, against JAX's planner."""
+    from graspnerf_tpu_torch.convert import main
+    from graspnerf_tpu_torch.train.checkpoint import load_params
+    from test_torch_convert import reference_state_dict
+    pth, out = tmp_path / "model_best.pth", tmp_path / "port.pt"
+    torch.save({"network_state_dict": reference_state_dict(
+        graspnerf_params()), "step": 5, "optimizer_state_dict": {}}, pth)
+    assert main([str(pth), str(out)]) == 0
+    assert_core_matches_jax(load_params(str(out)), jax_core)
 
 
 def test_planner_call_returns_grasps():
