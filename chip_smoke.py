@@ -2783,6 +2783,66 @@ def backward_launch_events(dev):
     return out
 
 
+def backward_profile(dev, planner, scene, train_args):
+    """Per instance of the gather's backward (B' and B'-bf16): the device
+    time of each CUDA launch of one bare call (torch.profiler, mean of 5
+    calls) on random, the planner's and the train pass's coordinates, and
+    what the index held on each: the longest tile list (entries, chunks,
+    work items it was cut into) and the work items a view. Taken before the
+    loop phase (backward_launch_events). {row name: row keys}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from graspnerf_tpu_torch.ops import epipolar_gather as eg
+    gen = torch.Generator().manual_seed(SEED + 5)
+    coords = {f"random P={RES ** 3}": gather_inputs(gen, dev)[3:],
+              f"planner P={RES ** 3}": planner_gather_inputs(planner,
+                                                             scene)[3:],
+              f"train P={TRAIN_ROWS}": [t.detach() for t in train_args[3:]]}
+    maps = (VIEWS, HEIGHT // 4, WIDTH // 4, 32)
+    per_call = eg.backward_cuda_launches()
+    out = {}
+    for name, dtype in (("epipolar_gather_backward", torch.float32),
+                        ("epipolar_gather_backward_bf16", BF16)):
+        times, index = {}, {}
+        for case, (xy, valid) in coords.items():
+            V, P = xy.shape[:2]
+            d_rgb = torch.randn(V, P, 35, generator=gen).to(dev, dtype)
+            d_ray = torch.randn(V, P, 32, generator=gen).to(dev)
+            launch = eg.backward_launcher(
+                torch.empty(VIEWS, HEIGHT, WIDTH, 3, device=dev),
+                *[torch.empty(maps, device=dev, dtype=dtype)
+                  for _ in range(2)], xy, valid, d_rgb, d_ray, False)
+            launch()
+            torch.cuda.synchronize()
+            # a profile that lost device events (all of a call's launches
+            # not seen 5 times) is taken again, at most twice more
+            for _ in range(3):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        launch()
+                    torch.cuda.synchronize()
+                us = {}
+                for e in prof.events():
+                    if (e.device_type == DeviceType.CUDA
+                            and not e.is_user_annotation):
+                        us.setdefault(e.name[:48], []).append(
+                            e.time_range.elapsed_us())
+                if len(us) == per_call and all(len(u) == 5
+                                               for u in us.values()):
+                    break
+            times[case] = {k: round(sum(u) / len(u), 2)
+                           for k, u in us.items()}
+            if len(us) != per_call or any(len(u) != 5 for u in us.values()):
+                times[case]["events lost"] = True
+            index[case] = eg.backward_index_stats(launch)
+        log(f"{name} device us a launch (one bare call): "
+            + json.dumps(times))
+        log(f"{name} index: " + json.dumps(index))
+        out[name] = {"device_us": times, "index": index}
+    zero_counts()
+    return out
+
+
 def device_events(fn):
     """Names of the device events (kernels, memsets, copies) of one call of
     fn, after a warm-up call, as torch.profiler records them."""
@@ -2936,6 +2996,7 @@ def main() -> int:
     render = run_render(dev, inputs)
     render16 = run_render_bf16(dev, inputs)
     train = run_train(dev)
+    bwd_profile = backward_profile(dev, planner, inputs, train["args"])
     if "--profile" in sys.argv[1:]:
         # before the loop, after which the profiler loses events
         # (backward_launch_events)
@@ -2968,6 +3029,8 @@ def main() -> int:
               check_gather_backward_bf16(
                   dev, gen, planner16, inputs, train16["args"],
                   events["epipolar_gather_backward_bf16"])]
+    for row in (rows[2], rows16[2]):
+        row.update(bwd_profile[row["name"]])
     rows_xy = [check_gather_backward_xy(dev, gen, planner, inputs),
                check_gather_backward_xy(dev, gen, planner16, inputs, BF16)]
     phases = phase_times(planner, inputs)

@@ -57,26 +57,35 @@
 // into L2 with atomics (24.6 M vector reductions at P = 64,000, whose rate
 // set the time of the scatter this replaces) in an order that changes from
 // run to run. This design adds nothing into global memory: it pulls.
-//   1. Index (two launches after a memset of tickets and flags): each point
-//      enters the list of every kTileY x kTileX tile of map cells that its
-//      taps reach (`tile_keys`; its anchor cell taken as the forward's
-//      phase 1 takes it), by a stable counting sort over chunks of kSpan
-//      points: a count pass with per-warp histograms, whose last block per
-//      view scans them, then a fill pass that ranks the same way.
-//   2. Pull (one launch): a block per tile and view stages its list in
-//      chunks of kChunk entries in shared memory, sorted stably by anchor
-//      cell (weights and anchor; the two gradient rows copied with cp.async
-//      while the chunk is sorted). A
-//      warp owns 2 x 2 cells, a lane one channel of both maps: it walks the
-//      3 x 3 anchor cells whose taps can reach its cells and adds each
-//      entry, in registers and in splat's order, to the cells its taps land
-//      on, attributed by their computed targets (clamped borders put two
-//      taps on one cell); every branch is the same for the whole warp. Then
-//      each cell is written once, float4 stores where the maps' gradients
-//      are 16-byte aligned and C % 4 == 0, else a float a lane. A long list
-//      (a ray's 40 samples on one cell, points clamped onto a border) only
-//      takes more chunks; the index orders each view's tiles longest list
-//      first.
+//   1. Index (two launches after a memset of tickets and flags): each
+//      point enters the list of every kTileY x kTileX tile of map cells
+//      that its taps reach (`tile_keys`; its anchor cell and weights taken
+//      as the forward's phase 1 takes them, and kept in the entry), by a
+//      stable counting sort over chunks of kSpan points: a count pass with
+//      per-warp histograms, whose last block per view scans them and cuts
+//      the tiles' lists, longest first, into work items of at most kSplit
+//      chunks, then a fill pass that ranks the same way.
+//   2. Pull (one launch, a block per work item): latency, not bytes or
+//      operations, bounded the block-synchronous pull this replaces (five
+//      barrier-separated phases a chunk, rows copied through registers in
+//      bfloat16, the longest list one block's). Each block is a producer
+//      warp, which sorts the item's list kChunk entries at a time by
+//      anchor cell up to kMetaStages chunks ahead, and 8 summing warps,
+//      which copy each chunk's two gradient rows a point into shared
+//      memory in their own dtype (16-byte cp.async of the blocks that hold
+//      them, completion counted on an mbarrier) and sum. A summing warp
+//      owns 2 x 4 cells, a lane one channel of both maps: it walks the 3 x
+//      5 anchor cells whose taps can reach its cells and adds each entry,
+//      in registers and in splat's order, to the cells its taps land on,
+//      attributed by their computed targets (clamped borders put two taps
+//      on one cell); every branch is the same for the whole warp. Then each
+//      cell is written once, float4 stores where the maps' gradients are
+//      16-byte aligned and C % 4 == 0, else a float a lane. A list longer
+//      than kSplit chunks (a ray's 40 samples on one cell, points clamped
+//      onto a border, the planner's dense tiles) is split: each range sums
+//      on its own and writes float32 partials, and the range whose ticket
+//      comes last adds them in range order, so no block holds the longest
+//      list.
 // Invalid points: their contribution g * 0 is zero (up to its sign) unless
 // an upstream value g is not finite. The index leaves them out; the fill
 // pass reads their upstream rows (while its ranks run) and flags a view
@@ -343,47 +352,66 @@ gather_kernel(const T* __restrict__ imgs,
 
 // ---------------------------------------------------------------- backward
 // Sizes of the backward (see the note at the top).
-constexpr int kTileY = 8, kTileX = 8;   // map cells a pull block owns
+constexpr int kTileY = 8, kTileX = 8;   // map cells a pull work item owns
 // anchor cells whose points can reach a tile: the tile and its one-cell top
 // and left halo, in the tile's region (row 0 and column 0 the halo)
 constexpr int kKeys = (kTileY + 1) * (kTileX + 1);
 // an invalid point adds g * 0, which is 0 unless g is not finite: the index
 // leaves invalid points out, the fill pass flags the rare views where one
-// has a non-finite upstream value, and those take the pull's NaN path (false: they are summed like the
-// others, an ablation)
+// has a non-finite upstream value, and those take the pull's NaN path
+// (false: they are summed like the others, an ablation)
 constexpr bool kDropInvalid = true;
 constexpr int kKeysPerLane = (kKeys + 31) / 32;
-constexpr int kWarpY = 2, kWarpX = 2;   // cells a pull warp owns
-constexpr int kPullWarps = kTileY / kWarpY * (kTileX / kWarpX);
-constexpr int kPullThreads = 32 * kPullWarps;
-constexpr int kChunk = 256;             // tile-list entries staged at a time
-constexpr int kRankWarps = kChunk / 32;
-constexpr int kRow = 64;                // staged floats an entry: img | ray
+constexpr int kWarpY = 2, kWarpX = 4;   // cells a summing warp owns
+constexpr int kSumWarps = kTileY / kWarpY * (kTileX / kWarpX);
+constexpr int kSumThreads = 32 * kSumWarps;
+constexpr int kPullThreads = kSumThreads + 32;   // and the producer warp
+constexpr int kPullMinBlocks = 3;       // an SM's blocks: the register cap
+constexpr int kChunk = 128;             // tile-list entries a stage holds
+// a block's rings: chunks whose rows are in shared memory (1: the next
+// chunk's rows are copied once the summing warps are done with a chunk's,
+// and land while they finish work items; 2: during the chunk's sums, an
+// ablation), and chunks the producer has sorted (it runs up to
+// kMetaStages chunks ahead)
+constexpr int kRowStages = 1, kMetaStages = 3;
+constexpr int kSplit = 8;               // chunks of a work item, at most
+// how the summing warps stage a chunk's gradient rows, the 16-byte blocks
+// that hold them: 1 by 16-byte cp.async, a thread a block (a warp
+// instruction copies about two entries); 0 the same through registers; 2 a
+// TMA bulk copy a row, a thread an entry
+constexpr int kRowCopy = 1;
+// the float32 instance takes the block-synchronous pull (`sync_pull`),
+// its lists whole (false: the pipelined pull, an ablation)
+constexpr bool kSyncPullF32 = true;
+constexpr int kMaxC = 32;               // channels: a lane each
 constexpr int kIndexWarps = 8;
+constexpr int kIndexThreads = 32 * kIndexWarps;
 constexpr int kRounds = 2;              // of 32 points, for an index warp
 constexpr int kSpan = kIndexWarps * kRounds * 32;   // points of an index block
 constexpr int kMaxTiles = 4096;         // the index's per-warp histograms
 constexpr int kMaxOrderedTiles = 1024;  // longest list first up to this many
 constexpr int kScanBatch = 16;          // the scan's loads in flight a thread
-// the pull reads the staged gradient rows from shared memory (false: from
-// global memory, an ablation)
-constexpr bool kStageRows = true;
 // what a call launches (switches for tools/gather_variants.py's probes)
 constexpr bool kRunIndex = true, kRunPull = true;
-// SM cycles a pull phase, of two blocks a view (tools/gather_variants.py)
+// SM cycles of the pull's roles, of its first kStampBlocks blocks
+// (tools/gather_variants.py)
 constexpr bool kStamps = false;
+constexpr int kStampBlocks = 128;
 
 static_assert(kTileY % kWarpY == 0 && kTileX % kWarpX == 0, "warp cells");
-static_assert(kChunk % 32 == 0 && kRankWarps <= kPullWarps, "chunk size");
-static_assert(kChunk <= kPullThreads, "an entry a thread in step 1");
+static_assert(kChunk % 32 == 0 && kChunk <= 256, "chunk size");
 static_assert(kKeys < 256, "anchor keys are 8 bits");
-static_assert(kKeys <= kPullThreads, "a thread a key in step 3");
-static_assert(2 * kTileY * kTileX <= kRankWarps * kKeys,
-              "the NaN path's bits fit in the rank histograms");
+static_assert(kIndexWarps >= 4, "the last index block's four tile arrays");
+static_assert(kRowStages >= 1 && kMetaStages >= kRowStages, "rings");
+static_assert(kChunk <= kSumThreads, "a summing thread an entry (TMA)");
 
-// kStamps: per view, the pull's first block (the longest list) and its
-// middle one: cycles in phases 1-5, chunks, entries.
-__device__ long long g_stamps[2 * 64][8];
+// kStamps: per block, SM cycles of its first summing warp waiting for a
+// chunk's rows, summing chunks, finishing work items, waiting for the next
+// chunk's header, waiting for its row stage to be free (the other summing
+// warps) and starting its row copies; of its producer warp waiting for a
+// free meta stage and sorting a chunk (its entries' loads land in whichever
+// part first reads them); chunks and work items.
+__device__ long long g_stamps[kStampBlocks][10];
 
 // A point's anchor cell (its (x0, y0) tap) on the quarter-res map, the tap
 // steps (0 at a clamped border) and the weights: `quarter_point`'s, so the
@@ -488,21 +516,32 @@ __device__ __forceinline__ void splat_bf16(float* __restrict__ map,
   }
 }
 
-// The index's scratch (int32), per view: the count pass's tickets and
-// non-finite flags (the memset's), then [chunk][tile] counts (offsets after
-// the scan), tile starts, the tiles in the order the pull takes them (tile,
-// list begin, list end), tile lists. A list entry is a point: its index
-// (bit 31 set where it is invalid) and its coordinates.
+// The index's scratch (int32), per view: first what the memset zeroes (the
+// count pass's tickets and non-finite flags), then the pull's tickets of
+// split tiles (zeroed by the count pass), [chunk][tile] counts (offsets
+// after the
+// scan), tile starts, the number of work items, the work items (tile, list
+// begin, list end, range | ranges << 16) in the order the pull takes them,
+// the tile lists, and the split work items' partial sums. A list entry is
+// a point in one tile's list: its index (bit 31 set where it is invalid),
+// its anchor's key in the tile's region with its tap steps and mask
+// (key | ddx << 8 | ddy << 9 | m << 10), and its weights wx, wy.
 struct Index {
   int* tickets;
   int* flags;
+  int* tile_tickets;
   int* table;
   int* starts;
-  int* order;
+  int* nitems;
+  int4* items;
   int4* lists;
-  int chunks, ntx, tiles;
-  long long list_cap, ints;
+  float* partials;
+  int chunks, ntx, tiles, item_cap;
+  long long list_cap, zeroed, ints, starts_at, nitems_at;
 };
+
+// floats of one work item's partial sums: its cells x both maps x kMaxC
+constexpr int kPartial = kTileY * kTileX * 2 * kMaxC;
 
 Index index_layout(int* scratch, int V, int P, int fh, int fw) {
   Index x;
@@ -510,17 +549,32 @@ Index index_layout(int* scratch, int V, int P, int fh, int fw) {
   x.ntx = (fw + kTileX - 1) / kTileX;
   x.tiles = (fh + kTileY - 1) / kTileY * x.ntx;
   x.list_cap = 4LL * P;   // a point is in at most four tile lists
-  const long long table = 2 * V, starts = table + 1LL * V * x.chunks * x.tiles,
-                  order = starts + 1LL * V * (x.tiles + 1),
-                  lists = (order + 3LL * V * x.tiles + 3) / 4 * 4;
-  x.ints = lists + 4 * V * x.list_cap;
-  x.tickets = scratch;
-  x.flags = scratch == nullptr ? nullptr : scratch + V;
-  x.table = scratch == nullptr ? nullptr : scratch + table;
-  x.starts = scratch == nullptr ? nullptr : scratch + starts;
-  x.order = scratch == nullptr ? nullptr : scratch + order;
-  x.lists = scratch == nullptr ? nullptr
-                               : reinterpret_cast<int4*>(scratch + lists);
+  // a tile's list in ranges of at most kSplit chunks, one range at least:
+  // fewer than tiles + entries / (kSplit * kChunk) + 1 work items a view
+  x.item_cap = static_cast<int>(x.tiles + x.list_cap / (kSplit * kChunk) + 1);
+  const long long tile_tickets = 2LL * V;
+  x.zeroed = tile_tickets;
+  const long long table = tile_tickets + 1LL * V * x.tiles,
+                  starts = table + 1LL * V * x.chunks * x.tiles,
+                  nitems = starts + 1LL * V * (x.tiles + 1),
+                  items = (nitems + V + 3) / 4 * 4,
+                  lists = items + 4LL * V * x.item_cap,
+                  partials = lists + 4LL * V * x.list_cap;
+  x.ints = partials + 1LL * V * x.item_cap * kPartial;
+  x.starts_at = starts;
+  x.nitems_at = nitems;
+  const auto at = [scratch](long long o) {
+    return scratch == nullptr ? nullptr : scratch + o;
+  };
+  x.tickets = at(0);
+  x.flags = at(V);
+  x.tile_tickets = at(tile_tickets);
+  x.table = at(table);
+  x.starts = at(starts);
+  x.nitems = at(nitems);
+  x.items = reinterpret_cast<int4*>(at(items));
+  x.lists = reinterpret_cast<int4*>(at(lists));
+  x.partials = reinterpret_cast<float*>(at(partials));
   return x;
 }
 
@@ -564,6 +618,31 @@ struct RowCheck {
   }
 };
 
+// Exclusive prefix sums of in[0, n) into out[0, n), by the whole index
+// block, in batches of its threads; returns the total. in and out may be
+// one array.
+__device__ int block_scan(const int* in, int* out, int n, int* warp_sums) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int carry = 0;
+  for (int i0 = 0; i0 < n; i0 += kIndexThreads) {
+    const int i = i0 + threadIdx.x;
+    const int k = i < n ? in[i] : 0;
+    int incl = k;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) warp_sums[w] = incl;
+    __syncthreads();
+    int before = carry;
+    for (int u = 0; u < w; ++u) before += warp_sums[u];
+    if (i < n) out[i] = before + incl - k;
+    for (int u = 0; u < kIndexWarps; ++u) carry += warp_sums[u];
+    __syncthreads();
+  }
+  return carry;
+}
+
 // Index passes, one launch each, the same blocks: block c takes the chunk
 // of kSpan points [c * kSpan, (c + 1) * kSpan) of view blockIdx.y, warp w
 // the kRounds rounds of 32 consecutive points from c * kSpan + w * 32 *
@@ -572,20 +651,24 @@ struct RowCheck {
 // counted in the warp's histogram (`warp_rank`). kFill = false writes the
 // chunk's count of each tile into table; the last block of a view to finish
 // (tickets) turns the counts into each chunk's offset in each tile's list,
-// the tiles' totals into starts, and orders the tiles by the length of
+// the tiles' totals into starts, orders the tiles by the length of
 // their lists, longest first (ties by index; by index alone above
-// kMaxOrderedTiles tiles), so that the pull starts the longest lists first.
-// kFill = true recounts the same way, so
-// the ranks agree, and writes each point's index at starts[tile] +
+// kMaxOrderedTiles tiles), so that the pull starts the longest lists first,
+// and cuts each list into ranges of at most kSplit chunks (bfloat16; float32
+// lists stay whole, for its block-synchronous pull): the view's work
+// items, in that order. kFill = true recounts the same way, so
+// the ranks agree, and writes each point's entry at starts[tile] +
 // offset[chunk][tile] + the counts of the warps before it + its rank: a
 // stable counting sort, so a tile's list is in the order (warp, round,
-// slot, lane) of the points, by index but for the slot. Invalid points are
+// slot, lane) of the points, by index but for the slot. An entry holds what
+// the pull needs of its point: its anchor's key in that tile's region, tap
+// steps and weights. Invalid points are
 // in no list; the fill pass checks their upstream rows and flags the view
 // (flags) where one holds inf or NaN. The count pass also splats d_rgb's
 // RGB channels into d_imgs when it is not null. GI, GR: the upstream
 // gradients' types (d_rgb, d_ray).
 template <bool kFill, typename GI, typename GR>
-__global__ void __launch_bounds__(kIndexWarps * 32)
+__global__ void __launch_bounds__(kIndexThreads)
 index_kernel(const float* __restrict__ xy,
              const unsigned char* __restrict__ valid,
              const GI* __restrict__ d_rgb, const GR* __restrict__ d_ray,
@@ -602,7 +685,7 @@ index_kernel(const float* __restrict__ xy,
   int4* list = x.lists + v * x.list_cap;
   xy += 2 * static_cast<size_t>(v) * P;
   valid += static_cast<size_t>(v) * P;
-  for (int i = threadIdx.x; i < kIndexWarps * x.tiles; i += kIndexWarps * 32)
+  for (int i = threadIdx.x; i < kIndexWarps * x.tiles; i += kIndexThreads)
     hists[i] = 0;
   const int p0 = c * kSpan + w * kRounds * 32;
   float2 pxy[kRounds];
@@ -615,6 +698,10 @@ index_kernel(const float* __restrict__ xy,
   }
   __syncthreads();
   int keys[kRounds][4], ranks[kRounds][4];
+  // the fill pass's entries: each round's anchor (y | ddy << 30, x | ddx <<
+  // 30) and weights
+  int ay[kRounds], ax[kRounds];
+  float awx[kRounds], awy[kRounds];
   bool nonfinite = false;   // an invalid point's upstream rows: inf or NaN
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
@@ -634,7 +721,14 @@ index_kernel(const float* __restrict__ xy,
     for (int s = 0; s < 4; ++s) keys[r][s] = -1;
     if (p < P) {
       const float2 n = normalised(pxy[r], H, W);
-      if (!out) tile_keys(anchor_of(n, pm[r], fh, fw), x.ntx, keys[r]);
+      if (!out) {
+        const Anchor a = anchor_of(n, pm[r], fh, fw);
+        tile_keys(a, x.ntx, keys[r]);
+        ay[r] = a.y | a.ddy << 30;
+        ax[r] = a.x | a.ddx << 30;
+        awx[r] = a.wx;
+        awy[r] = a.wy;
+      }
       if (!kFill && d_imgs != nullptr) {
         const Point q = full_point(n, H, W, pm[r]);
         float* map = d_imgs + static_cast<size_t>(v) * H * W * 3;
@@ -657,7 +751,7 @@ index_kernel(const float* __restrict__ xy,
   if (__syncthreads_or(nonfinite) && threadIdx.x == 0) atomicOr(x.flags + v, 1);
   // per tile: the warps' counts become their offsets in the chunk (the
   // barrier above ends the ranks)
-  for (int t = threadIdx.x; t < x.tiles; t += kIndexWarps * 32) {
+  for (int t = threadIdx.x; t < x.tiles; t += kIndexThreads) {
     int run = 0;
     for (int u = 0; u < kIndexWarps; ++u) {
       const int h = hists[u * x.tiles + t];
@@ -669,16 +763,29 @@ index_kernel(const float* __restrict__ xy,
   __syncthreads();
   if (kFill) {
 #pragma unroll
-    for (int r = 0; r < kRounds; ++r)
+    for (int r = 0; r < kRounds; ++r) {
+      if (keys[r][0] < 0) continue;
+      const int y = ay[r] & 0x3fffffff, xx = ax[r] & 0x3fffffff;
+      const int ddy = ay[r] >> 30, ddx = ax[r] >> 30;
+      const int bits = ddx << 8 | ddy << 9 | (pm[r] != 0.0f) << 10;
+      const int p = p0 + 32 * r + lane;
+      // the tiles' first rows and columns (`tile_keys`' slots: the anchor's
+      // tile, right of it, below it, below-right)
+      const int ty0 = y / kTileY * kTileY, ty1 = (y + ddy) / kTileY * kTileY;
+      const int tx0 = xx / kTileX * kTileX, tx1 = (xx + ddx) / kTileX * kTileX;
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
         const int k = keys[r][s];
-        if (k >= 0)
-          list[starts[k] + table[c * x.tiles + k] + hist[k] + ranks[r][s]] =
-              make_int4((p0 + 32 * r + lane) |
-                            (pm[r] != 0.0f ? 0 : static_cast<int>(0x80000000u)),
-                        __float_as_int(pxy[r].x), __float_as_int(pxy[r].y), 0);
+        if (k < 0) continue;
+        // the anchor in tile k's region (its top and left halo row 0)
+        const int key = (y - (s < 2 ? ty0 : ty1) + 1) * (kTileX + 1) + xx -
+                        (s % 2 == 0 ? tx0 : tx1) + 1;
+        list[starts[k] + table[c * x.tiles + k] + hist[k] + ranks[r][s]] =
+            make_int4(p | (pm[r] != 0.0f ? 0 : static_cast<int>(0x80000000u)),
+                      key | bits, __float_as_int(awx[r]),
+                      __float_as_int(awy[r]));
       }
+    }
     return;
   }
 
@@ -687,43 +794,38 @@ index_kernel(const float* __restrict__ xy,
   if (threadIdx.x == 0) last = atomicAdd(x.tickets + v, 1) == gridDim.x - 1;
   __syncthreads();
   if (!last) return;
+  // entries a work item of the pipelined pull takes at most; the
+  // block-synchronous pull's lists stay whole
+  constexpr bool kPipelined = sizeof(GI) == 2 || !kSyncPullF32;
+  constexpr int kRange = kSplit * kChunk;
   // The view's last block: per tile, the exclusive sum over chunks (in
-  // place), then the exclusive sum of the tiles' totals.
-  int carry = 0;
-  for (int t0 = 0; t0 < x.tiles; t0 += kIndexWarps * 32) {
-    const int t = t0 + threadIdx.x;
+  // place) and its total, then the exclusive sum of the totals.
+  for (int t = threadIdx.x; t < x.tiles; t += kIndexThreads) {
     int total = 0;
-    if (t < x.tiles)
-      for (int k0 = 0; k0 < x.chunks; k0 += kScanBatch) {   // loads first
-        int n[kScanBatch];
+    for (int k0 = 0; k0 < x.chunks; k0 += kScanBatch) {   // loads first
+      int n[kScanBatch];
 #pragma unroll
-        for (int k = 0; k < kScanBatch; ++k)
-          n[k] = k0 + k < x.chunks ? __ldcg(table + (k0 + k) * x.tiles + t) : 0;
+      for (int k = 0; k < kScanBatch; ++k)
+        n[k] = k0 + k < x.chunks ? __ldcg(table + (k0 + k) * x.tiles + t) : 0;
 #pragma unroll
-        for (int k = 0; k < kScanBatch; ++k) {
-          if (k0 + k < x.chunks) table[(k0 + k) * x.tiles + t] = total;
-          total += n[k];
-        }
+      for (int k = 0; k < kScanBatch; ++k) {
+        if (k0 + k < x.chunks) table[(k0 + k) * x.tiles + t] = total;
+        total += n[k];
       }
-    int incl = total;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += y;
     }
-    if (lane == 31) warp_sums[w] = incl;
-    __syncthreads();
-    int before = carry;
-    for (int k = 0; k < w; ++k) before += warp_sums[k];
-    if (t < x.tiles) {
-      starts[t] = before + incl - total;
-      hists[t] = total;
-    }
-    for (int k = 0; k < kIndexWarps; ++k) carry += warp_sums[k];
-    __syncthreads();
+    hists[t] = total;
   }
-  if (threadIdx.x == 0) starts[x.tiles] = carry;
-  int* order = x.order + 3 * static_cast<size_t>(v) * x.tiles;
-  for (int t = threadIdx.x; t < x.tiles; t += kIndexWarps * 32) {
+  __syncthreads();
+  const int entries = block_scan(hists, starts, x.tiles, warp_sums);
+  if (threadIdx.x == 0) starts[x.tiles] = entries;
+  // by position in the pull's order: the tile, its ranges, its first item
+  // (the pipelined pull; a block-synchronous list is one work item, written
+  // at once)
+  int* by_pos = hists + x.tiles;
+  int* ranges = hists + 2 * x.tiles;
+  int* first = hists + 3 * x.tiles;
+  int4* item = x.items + static_cast<size_t>(v) * x.item_cap;
+  for (int t = threadIdx.x; t < x.tiles; t += kIndexThreads) {
     int r = t;
     const int n = hists[t];
     if (x.tiles <= kMaxOrderedTiles) {
@@ -733,37 +835,75 @@ index_kernel(const float* __restrict__ xy,
         r += m > n || (m == n && u < t);
       }
     }
-    const int begin = __ldcg(starts + t);   // written by this block
-    order[3 * r] = t;
-    order[3 * r + 1] = begin;
-    order[3 * r + 2] = begin + n;
+    if constexpr (kPipelined) {
+      by_pos[r] = t;
+      ranges[r] = max(1, (n + kRange - 1) / kRange);
+      x.tile_tickets[v * x.tiles + t] = 0;   // for the pull's split lists
+    } else {
+      const int begin = __ldcg(starts + t);   // written by this block
+      item[r] = make_int4(t, begin, begin + n, 1 << 16);
+    }
+  }
+  if constexpr (!kPipelined) {
+    if (threadIdx.x == 0) x.nitems[v] = x.tiles;
+    return;
+  }
+  __syncthreads();
+  const int items = block_scan(ranges, first, x.tiles, warp_sums);
+  if (threadIdx.x == 0) x.nitems[v] = items;
+  for (int r = threadIdx.x; r < x.tiles; r += kIndexThreads) {
+    const int t = by_pos[r], nr = ranges[r];
+    const int begin = __ldcg(starts + t), end = begin + hists[t];
+    for (int j = 0; j < nr; ++j)
+      item[first[r] + j] = make_int4(t, begin + j * kRange,
+                                     min(end, begin + (j + 1) * kRange),
+                                     j | nr << 16);
   }
 }
 
-// The pull: block (view, i) owns the i-th tile of the view in the index's
-// order (longest list first; the grid runs the views' i-th tiles
-// together), kTileY x kTileX cells x all channels of
-// both maps; warp w owns kWarpY x kWarpX of them, lane c channel c of both
-// maps, and
-// sums them in registers, to write each cell once at the end. The tile's
-// list goes through shared memory kChunk entries at a time:
-//   1. per entry (a thread each), its point's anchor, weights and key, the
-//      anchor cell in the tile's region (the entry, which holds the point's
-//      coordinates, was loaded during the chunk before);
-//   2. the gradient rows (d_rgb's channels 3.., d_ray) start to copy
-//      (cp.async, a warp a row at a time); warps 0..kRankWarps-1 rank the
-//      entries by key (one round each);
-//   3. warp 0 turns the per-warp key counts into each key's segment;
-//   4. each entry's anchor, weights and list position go to its place in
-//      its key's segment, in list order (a stable sort); the copies are
-//      waited for;
-//   5. each warp walks the (kWarpY + 1) x (kWarpX + 1) anchor cells whose
-//      taps can reach its cells, in row-major order, each segment in list order, and adds each
-//      entry's contributions to the cells its taps land on (`pull_entry`).
-// So a cell sums chunk by chunk, its four anchor cells (y-1,x-1), (y-1,x),
-// (y,x-1), (y,x) in turn, each in list order: a fixed order. GI and GR are
-// the upstream gradients' types (d_rgb, d_ray), O the maps' gradients'
-// (float, or bf16: the bfloat16 instance, `pull_entry_bf16`).
+// A chunk's record of an entry, in its meta stage: the weights its pull
+// reads (`pull_entry`: wx, owx, wy, owy; `pull_entry_bf16`: the 2 x 2
+// window's folded weights), where its rows start in the row stage (d_rgb's
+// | tap steps and mask << 16, d_ray's).
+struct __align__(16) Record {
+  float4 w;
+  int rgb, ray, pad0, pad1;
+};
+
+// The pull: block w takes work item w / V of view w % V (a tile, or one
+// range of a long tile list; the views' i-th items together, longest
+// first). Its producer warp walks the item's list kChunk entries at a
+// time; its kSumWarps summing warps each own kWarpY x kWarpX cells of the
+// tile, a lane channel c of both maps, summing them in registers. For each
+// chunk the producer (its entries already in its buffer: the next chunk's
+// land by cp.async meanwhile), in the chunk's meta stage (kMetaStages of
+// them, the producer up to that many chunks ahead),
+//   1. writes each entry's copy job (where its two gradient rows, d_rgb's
+//      channels 3.. and d_ray, start and how many 16-byte blocks hold
+//      them) and the header, and arrives on `jobs_full`;
+//   2. ranks the entries by key (warp_rank, round by round, so stably),
+//      turns the counts into each key's segment and writes each entry's
+//      record (weights, tap steps, where its rows start) to its place, and
+//      arrives on `meta_full`.
+// The summing warps copy each chunk's rows, in their own dtype, into the
+// row stage (`copy_rows`: a thread a 16-byte block; completion counted on
+// `rows_full`) once `jobs_full` says the jobs are there and `rows_empty`
+// that every summing warp is done with the chunk before (so with one row
+// stage the copies run while the warps finish work items and the producer
+// sorts); then each waits on `meta_full` and `rows_full`, walks the (kWarpY
+// + 1) x (kWarpX + 1) anchor cells whose taps can reach its cells, in
+// row-major order, each segment in list order, adds each entry's
+// contributions to the cells its taps land on (`pull_entry`), and arrives
+// on `rows_empty` and `meta_empty` (which the producer waits on before it
+// fills the meta stage again). After the item's last chunk the summing
+// warps write each cell once; a range of a split list writes its partial
+// sums, and the range whose ticket comes last adds the ranges' partials in
+// range order (0, 1, ...) and writes the cells. So a cell sums range by
+// range, chunk by chunk, its four anchor cells (y-1,x-1), (y-1,x), (y,x-1),
+// (y,x) in turn, each in list order: a fixed order, the same whichever
+// range comes last. GI and GR are the upstream gradients' types (d_rgb,
+// d_ray), O the maps' gradients' (float, or bf16: the bfloat16 instance,
+// `pull_entry_bf16`).
 // Adds an entry to the kWarpY x kWarpX cells a warp owns, from anchor (ar,
 // ac) of their (kWarpY + 1) x (kWarpX + 1) (constants once unrolled): the
 // cell kY rows below and kX columns right of the anchor gets, in `splat`'s
@@ -771,19 +911,20 @@ index_kernel(const float* __restrict__ xy,
 // then bottom), times the column weight of each column tap that does (x0,
 // then x1). At a clamped border both taps of a pair land on one cell and
 // both are added.
-__device__ __forceinline__ void pull_entry(float ai[kWarpY][kWarpX],
-                                           float ar[kWarpY][kWarpX], int kAr,
-                                           int kAc, float gi, float gr,
-                                           float4 q, int ddy, int ddx) {
+template <int WY = kWarpY, int WX = kWarpX>
+__device__ __forceinline__ void pull_entry(float ai[WY][WX], float ar[WY][WX],
+                                           int kAr, int kAc, float gi,
+                                           float gr, float4 q, int ddy,
+                                           int ddx) {
 #pragma unroll
-  for (int cy = 0; cy < kWarpY; ++cy) {
+  for (int cy = 0; cy < WY; ++cy) {
     const int kY = cy + 1 - kAr;
     if (kY < 0 || kY > 1) continue;
     const bool top = kY == 0, bot = ddy == kY;
     const float ti = gi * q.w, tr = gr * q.w;   // owy
     const float bi = gi * q.z, br = gr * q.z;   // wy
 #pragma unroll
-    for (int cx = 0; cx < kWarpX; ++cx) {
+    for (int cx = 0; cx < WX; ++cx) {
       const int kX = cx + 1 - kAc;
       if (kX < 0 || kX > 1) continue;
       const bool x0 = kX == 0, x1 = ddx == kX;
@@ -807,97 +948,758 @@ __device__ __forceinline__ void pull_entry(float ai[kWarpY][kWarpX],
 // before the float32 sum, as `_interp_from_win` and `_splat_windows` do
 // (fused_gather.py:137-144, 214-229). Cells of a point's window that no
 // tap reaches (weight 0) add 0 and are skipped.
+// q: the window's weights (W00, W01, W10, W11), Wab = rw_a * cw_b with
+// rw_0 = owy (+ wy where ddy is 0), rw_1 = wy, cw_0 = owx (+ wx where ddx is
+// 0), cw_1 = wx, folded and multiplied by the producer. Both maps' products
+// round to bfloat16 in one conversion (cvt.rn.bf16x2, each half rounded to
+// the nearest).
 __device__ __forceinline__ void pull_entry_bf16(float ai[kWarpY][kWarpX],
                                                 float ar[kWarpY][kWarpX],
                                                 int kAr, int kAc, float gi,
                                                 float gr, float4 q, int ddy,
                                                 int ddx) {
-  const float r0 = ddy ? q.w : q.w + q.z;   // owy (+ wy at a clamped border)
-  const float c0 = ddx ? q.y : q.y + q.x;   // owx (+ wx)
 #pragma unroll
   for (int cy = 0; cy < kWarpY; ++cy) {
     const int kY = cy + 1 - kAr;
     if (kY < 0 || kY > ddy) continue;
-    const float rw = kY == 0 ? r0 : q.z;
 #pragma unroll
     for (int cx = 0; cx < kWarpX; ++cx) {
       const int kX = cx + 1 - kAc;
       if (kX < 0 || kX > ddx) continue;
-      const float w = rw * (kX == 0 ? c0 : q.x);
-      ai[cy][cx] += round_bf16(gi * w);
-      ar[cy][cx] += round_bf16(gr * w);
+      const float w = kY == 0 ? (kX == 0 ? q.x : q.y) : (kX == 0 ? q.z : q.w);
+      const __nv_bfloat162 b = __floats2bfloat162_rn(gi * w, gr * w);
+      const unsigned u = *reinterpret_cast<const unsigned*>(&b);
+      ai[cy][cx] += __uint_as_float(u << 16);
+      ar[cy][cx] += __uint_as_float(u & 0xffff0000u);
     }
   }
 }
 
+// Shared memory of a pull block: kRowStages row stages, each a chunk's
+// gradient rows in slots of 16-byte blocks (a row of kMaxC elements at any
+// 2- or 4-byte offset fits); kMetaStages meta stages, each a chunk's
+// records in sorted order, its entries' copy jobs, the keys' segments and a
+// header; then the producer's histogram and entries (two chunks' list
+// entries, the next one's landing while this one is sorted), the summing
+// warps' NaN bits and ticket, and the barriers. (A meta stage's jobs: each entry's rows' first
+// 16-byte blocks, d_rgb's then d_ray's, at kJobs; their block counts,
+// d_rgb's | d_ray's << 8, at kJobBlocks.)
+template <typename GI, typename GR>
+struct PullSmem {
+  static constexpr int kRgbSlot = kMaxC * sizeof(GI) + 16;
+  static constexpr int kRaySlot = kMaxC * sizeof(GR) + 16;
+  // 16-byte blocks an entry's rows take at most
+  static constexpr int kBlocks = kRgbSlot / 16 + kRaySlot / 16;
+  // a row stage: rgb slots, then ray slots
+  static constexpr int kRay = kChunk * kRgbSlot;
+  static constexpr int kRowStage = kRay + kChunk * kRaySlot;
+  // a meta stage: records, the entries' copy jobs (each row's first
+  // 16-byte block, the two rows' block counts), segments, header
+  static constexpr int kRecs = 0;
+  static constexpr int kJobs = kRecs + sizeof(Record) * kChunk;
+  static constexpr int kJobBlocks = kJobs + 16 * kChunk;
+  static constexpr int kSeg = kJobBlocks + 4 * kChunk;
+  static constexpr int kHdr = kSeg + (4 * (kKeys + 1) + 15) / 16 * 16;
+  static constexpr int kMetaStage = kHdr + 32;
+  static constexpr int kMeta = kRowStages * kRowStage;
+  static constexpr int kHist = kMeta + kMetaStages * kMetaStage;
+  static constexpr int kEntries = kHist + (4 * kKeys + 15) / 16 * 16;
+  static constexpr int kBits = kEntries + 2 * 16 * kChunk;
+  static constexpr int kBars = kBits + 4 * (2 * kTileY * kTileX + 4);
+  // barriers: jobs_full, meta_full, meta_empty a meta stage, rows_full,
+  // rows_empty a row stage
+  static constexpr int kBytes = kBars + 8 * (3 * kMetaStages + 2 * kRowStages);
+  static_assert(kRgbSlot % 16 == 0 && kRaySlot % 16 == 0 &&
+                    kRowStage % 16 == 0 && kMetaStage % 16 == 0 &&
+                    kBars % 8 == 0,
+                "copy destinations 16-byte aligned");
+  static_assert(kRay < 65536, "d_rgb rows' offsets are 16 bits");
+};
+
+// A meta stage's header: the item's view, tile, index in its view, range
+// and ranges, what the chunk is to the item, its entries, and whether the
+// view takes the NaN path
+constexpr int kFirstChunk = 1, kLastChunk = 2, kNoWork = 4;
+struct Header {
+  int v, tile, item, flags, range, ranges, n, nan;
+};
+
+// mbarrier and copy primitives (sm_90)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// an arrival that also expects `bytes` of copies to complete on the barrier
+__device__ __forceinline__ void bar_arrive_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// an arrival once the thread's cp.async copies so far have landed
+__device__ __forceinline__ void bar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// Waits for the phase of the given parity to complete. A wait that lasts
+// seconds (2^26 tries; a legitimate one lasts microseconds) traps, so that a
+// fault in the pipeline ends the launch with an error instead of hanging
+// the card.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  for (unsigned tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == 1u << 26) __trap();
+  }
+}
+// The wait of the q-th use of a ring of `size` barriers for that use's
+// phase to complete (full), or (free) for the phase before it, which
+// passes at once on the first use.
+__device__ __forceinline__ void ring_wait(uint64_t* ring, int size, int q,
+                                          bool free) {
+  bar_wait(ring + q % size, (q / size & 1) ^ static_cast<unsigned>(free));
+}
+// the summing warps' own barrier (the producer never joins it)
+__device__ __forceinline__ void sum_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kSumThreads) : "memory");
+}
+
+// Where a row starts in its first 16-byte block, and how many blocks hold
+// its n elements.
+template <typename T>
+__device__ __forceinline__ int row_skip(const T* row) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15);
+}
+template <typename T>
+__device__ __forceinline__ int row_blocks(const T* row, int n) {
+  return (row_skip(row) + n * static_cast<int>(sizeof(T)) + 15) >> 4;
+}
+template <typename T>
+__device__ __forceinline__ const char* row_base(const T* row) {
+  return reinterpret_cast<const char*>(row) - row_skip(row);
+}
+
+// A chunk's list entries, the n at list, into buf by cp.async (a commit
+// group)
+__device__ __forceinline__ void fetch_entries(int4* buf, const int4* list,
+                                              int n) {
+  for (int e = threadIdx.x & 31; e < n; e += 32)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(
+                     smem_addr(buf + e)),
+                 "l"(list + e)
+                 : "memory");
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// The producer warp (see the pull's note): per chunk, its meta stage.
+template <typename GI, typename GR>
+__device__ __forceinline__ void produce(unsigned char* smem,
+                                        uint64_t* jobs_full,
+                                        uint64_t* meta_full,
+                                        uint64_t* meta_empty,
+                                        const GI* __restrict__ d_rgb,
+                                        const GR* __restrict__ d_ray,
+                                        const Index& x, int V, int P, int C) {
+  using S = PullSmem<GI, GR>;
+  constexpr int kR = kChunk / 32;   // entries a lane
+  const int lane = threadIdx.x & 31;
+  int* hist = reinterpret_cast<int*>(smem + S::kHist);
+  long long stamps[2] = {0, 0}, stamp = kStamps ? clock64() : 0;
+#define PSTAMP(i)                         \
+  if (kStamps) {                          \
+    const long long now = clock64();      \
+    stamps[i] += now - stamp;             \
+    stamp = now;                          \
+  }
+  // the block's work item: item i of view v
+  const int v = blockIdx.x % V, i = blockIdx.x / V;
+  const int4 item = x.items[static_cast<size_t>(v) * x.item_cap + i];
+  const int tile = item.x, begin = item.y, end = item.z;
+  const int nan = kDropInvalid && x.flags[v];
+  const int4* list = x.lists + v * x.list_cap;
+  const size_t vp = static_cast<size_t>(v) * P;
+  int4* buf = reinterpret_cast<int4*>(smem + S::kEntries);
+  fetch_entries(buf, list + begin, min(kChunk, end - begin));
+  int q = 0;   // chunks so far
+  for (int b = begin;; b += kChunk, ++q) {
+    {
+      const int n = min(kChunk, end - b);
+      const bool last = b + kChunk >= end;
+      // the next chunk's entries start to land; this chunk's have
+      if (!last) {
+        fetch_entries(buf + (q + 1) % 2 * kChunk, list + b + kChunk,
+                      min(kChunk, end - b - kChunk));
+        asm volatile("cp.async.wait_group 1;" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+      }
+      __syncwarp();
+      int4 ent[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+        ent[r] = 32 * r + lane < n ? buf[q % 2 * kChunk + 32 * r + lane]
+                                   : make_int4(0, 0, 0, 0);
+      ring_wait(meta_empty, kMetaStages, q, true);
+      PSTAMP(0);
+      unsigned char* meta = smem + S::kMeta + q % kMetaStages * S::kMetaStage;
+      const char** jobs = reinterpret_cast<const char**>(meta + S::kJobs);
+      int* job_blocks = reinterpret_cast<int*>(meta + S::kJobBlocks);
+      // the entries' copy jobs
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int e = 32 * r + lane;
+        if (e < n) {
+          const size_t p = vp + (ent[r].x & 0x7fffffff);
+          const GI* ri = d_rgb + p * (3 + C) + 3;
+          const GR* rr = d_ray + p * C;
+          jobs[2 * e] = row_base(ri);
+          jobs[2 * e + 1] = row_base(rr);
+          const int bi = row_blocks(ri, C), br = row_blocks(rr, C);
+          job_blocks[e] = bi | br << 8;
+        }
+      }
+      if (lane == 0) {
+        Header* h = reinterpret_cast<Header*>(meta + S::kHdr);
+        h->v = v;
+        h->tile = tile;
+        h->item = i;
+        h->flags = (b == begin ? kFirstChunk : 0) | (last ? kLastChunk : 0);
+        h->range = item.w & 0xffff;
+        h->ranges = item.w >> 16;
+        h->n = n;
+        h->nan = nan;
+      }
+      __syncwarp();
+      // the summing warps may start the rows' copies
+      if (lane == 0) bar_arrive(jobs_full + q % kMetaStages);
+      // the ranks by key, round by round, then the keys' segments
+      for (int k = lane; k < kKeys; k += 32) hist[k] = 0;
+      __syncwarp();
+      int key[kR], rank[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        key[r] = 32 * r + lane < n ? ent[r].y & 0xff : -1;
+        rank[r] = warp_rank(hist, key[r]);
+      }
+      int* seg = reinterpret_cast<int*>(meta + S::kSeg);
+      {
+        int run[kKeysPerLane], sum = 0;
+#pragma unroll
+        for (int j = 0; j < kKeysPerLane; ++j) {
+          const int k = lane * kKeysPerLane + j;
+          run[j] = k < kKeys ? hist[k] : 0;
+          sum += run[j];
+        }
+        int incl = sum;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, incl, o);
+          if (lane >= o) incl += y;
+        }
+        int base = incl - sum;
+#pragma unroll
+        for (int j = 0; j < kKeysPerLane; ++j) {
+          const int k = lane * kKeysPerLane + j;
+          if (k < kKeys) seg[k] = base;
+          base += run[j];
+        }
+        if (lane == 31) seg[kKeys] = incl;
+      }
+      __syncwarp();
+      // each entry's record in its key's segment, in list order
+      Record* recs = reinterpret_cast<Record*>(meta + S::kRecs);
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+        if (key[r] >= 0) {
+          const float wx = __int_as_float(ent[r].z),
+                      wy = __int_as_float(ent[r].w);
+          const float owx = 1.0f - wx, owy = 1.0f - wy;
+          Record rec;
+          if constexpr (sizeof(GI) == 2) {   // the bfloat16 window
+            const float c0 = ent[r].y >> 8 & 1 ? owx : owx + wx;
+            const float r0 = ent[r].y >> 9 & 1 ? owy : owy + wy;
+            rec.w = make_float4(r0 * c0, r0 * wx, wy * c0, wy * wx);
+          } else {
+            rec.w = make_float4(wx, owx, wy, owy);
+          }
+          // where the rows start in a row stage
+          const int e = 32 * r + lane;
+          const size_t p = vp + (ent[r].x & 0x7fffffff);
+          rec.rgb = (e * S::kRgbSlot + row_skip(d_rgb + p * (3 + C) + 3)) |
+                    (ent[r].y >> 8 & 7) << 16;
+          rec.ray = S::kRay + e * S::kRaySlot + row_skip(d_ray + p * C);
+          recs[seg[key[r]] + rank[r]] = rec;
+        }
+      __syncwarp();
+      if (lane == 0) bar_arrive(meta_full + q % kMetaStages);
+      PSTAMP(1);
+      if (last) break;
+    }
+  }
+  ++q;
+  // no work left: the summing warps stop at this chunk
+  ring_wait(meta_empty, kMetaStages, q, true);
+  if (lane == 0) {
+    unsigned char* meta = smem + S::kMeta + q % kMetaStages * S::kMetaStage;
+    reinterpret_cast<Header*>(meta + S::kHdr)->flags = kNoWork;
+    bar_arrive(jobs_full + q % kMetaStages);
+  }
+#undef PSTAMP
+  if (kStamps && lane == 0 && blockIdx.x < kStampBlocks) {
+    for (int k = 0; k < 2; ++k) g_stamps[blockIdx.x][6 + k] = stamps[k];
+  }
+}
+
+// The summing warps' copies of a chunk's rows (its meta stage `meta`, with
+// the copy jobs, header h) into a row stage, completing on `full`: each
+// thread takes 16-byte blocks k = t, t + kSumThreads, ... of the chunk's
+// entries' kBlocks slots each (a warp instruction copies about two
+// entries), by cp.async (kRowCopy 1) or through registers (0); or (2) a
+// thread an entry, a TMA bulk copy a row. Every summing thread arrives on
+// full once.
+template <typename GI, typename GR>
+__device__ __forceinline__ void copy_rows(unsigned char* rows,
+                                          const unsigned char* meta,
+                                          const Header& h, uint64_t* full) {
+  using S = PullSmem<GI, GR>;
+  const int t = threadIdx.x;
+  const char* const* jobs =
+      reinterpret_cast<const char* const*>(meta + S::kJobs);
+  const int* job_blocks = reinterpret_cast<const int*>(meta + S::kJobBlocks);
+  if (kRowCopy == 2) {
+    const int nb = t < h.n ? job_blocks[t] : 0;
+    bar_arrive_tx(full, 16 * ((nb & 0xff) + (nb >> 8)));
+    if (t < h.n) {
+      unsigned char* dst[2] = {rows + t * S::kRgbSlot,
+                               rows + S::kRay + t * S::kRaySlot};
+      const int blocks[2] = {nb & 0xff, nb >> 8};
+      for (int i = 0; i < 2; ++i)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst[i])),
+            "l"(jobs[2 * t + i]), "r"(16 * blocks[i]), "r"(smem_addr(full))
+            : "memory");
+    }
+    return;
+  }
+#pragma unroll 2
+  for (int k = t; k < h.n * S::kBlocks; k += kSumThreads) {
+    const int e = k / S::kBlocks, j = k - e * S::kBlocks;
+    const int nb = job_blocks[e], bi = nb & 0xff;
+    const bool img = j < bi;
+    const int jj = img ? j : j - bi;
+    if (img || jj < nb >> 8) {
+      unsigned char* dst = rows + (img ? e * S::kRgbSlot
+                                       : S::kRay + e * S::kRaySlot) + 16 * jj;
+      const char* src = jobs[2 * e + !img] + 16 * jj;
+      if (kRowCopy == 1)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                         smem_addr(dst)),
+                     "l"(src)
+                     : "memory");
+      else
+        *reinterpret_cast<uint4*>(dst) =
+            __ldg(reinterpret_cast<const uint4*>(src));
+    }
+  }
+  if (kRowCopy == 1)
+    bar_arrive_copies(full);
+  else
+    bar_arrive(full);
+}
+
+// A summing warp's sums over one anchor cell's segment of the chunk: its
+// records (recs) and rows (rows, the row stage).
 template <typename GI, typename GR, typename O>
 __device__ __forceinline__ void pull_segment(
     float ai[kWarpY][kWarpX], float ar[kWarpY][kWarpX], int kAr, int kAc,
-    const int* seg, const int* meta, const float4* wts, const int* src,
-    const float* rows, const int* pidx, const GI* __restrict__ d_rgb,
-    const GR* __restrict__ d_ray, int k, int C, int lane) {
-#pragma unroll 4
-  for (int j = seg[k]; j < seg[k + 1]; ++j) {
-    const int mt = meta[j];
-    const int e = src[j];
-    float gi, gr;
-    if (kStageRows) {
-      gi = rows[e * kRow + lane];
-      gr = rows[e * kRow + 32 + lane];
-    } else {
-      const int ch = min(lane, C - 1);
-      gi = to_f(d_rgb[pidx[e] * (3 + C) + 3 + ch]);
-      gr = to_f(d_ray[pidx[e] * C + ch]);
-    }
-    if (!(mt >> 10 & 1)) {   // an invalid point left in: g * 0
+    const int* seg, const Record* recs, const unsigned char* rows, int k,
+    int lane) {
+  const int end = seg[k + 1];
+#pragma unroll 1
+  for (int j = seg[k]; j < end; ++j) {
+    const float4 q = recs[j].w;
+    const int2 at = *reinterpret_cast<const int2*>(&recs[j].rgb);
+    float gi = to_f(*reinterpret_cast<const GI*>(rows + (at.x & 0xffff) +
+                                                 lane * sizeof(GI)));
+    float gr = to_f(*reinterpret_cast<const GR*>(rows + at.y +
+                                                 lane * sizeof(GR)));
+    if (!kDropInvalid && !(at.x >> 18 & 1)) {   // an invalid point: g * 0
       gi *= 0.0f;
       gr *= 0.0f;
     }
     if constexpr (sizeof(O) == 2)
-      pull_entry_bf16(ai, ar, kAr, kAc, gi, gr, wts[j], mt >> 9 & 1,
-                      mt >> 8 & 1);
+      pull_entry_bf16(ai, ar, kAr, kAc, gi, gr, q, at.x >> 17 & 1,
+                      at.x >> 16 & 1);
     else
-      pull_entry(ai, ar, kAr, kAc, gi, gr, wts[j], mt >> 9 & 1, mt >> 8 & 1);
+      pull_entry(ai, ar, kAr, kAc, gi, gr, q, at.x >> 17 & 1, at.x >> 16 & 1);
+  }
+}
+
+// A summing warp after an item's last chunk: a split list's range writes
+// its partial sums and takes a ticket; the range that comes last, or an
+// item that is its tile's whole list, has the cells' sums (the ranges'
+// partials added in range order), sets the NaN path's cells and writes
+// each of the warp's cells once.
+template <bool kVec, typename GI, typename GR, typename O>
+__device__ __forceinline__ void finish(
+    float ai[kWarpY][kWarpX], float ar[kWarpY][kWarpX], const Header& h,
+    unsigned* bits, const float* __restrict__ xy,
+    const unsigned char* __restrict__ valid, const GI* __restrict__ d_rgb,
+    const GR* __restrict__ d_ray, const Index& x,
+    O* __restrict__ d_img_feats, O* __restrict__ d_ray_feats, int P, int H,
+    int W, int fh, int fw, int C) {
+  const int t = threadIdx.x, w = t / 32, lane = t % 32;
+  const int by = w / (kTileX / kWarpX) * kWarpY;
+  const int bx = w % (kTileX / kWarpX) * kWarpX;
+  const int ty0 = h.tile / x.ntx * kTileY, tx0 = h.tile % x.ntx * kTileX;
+  if (h.ranges > 1) {
+    float* part = x.partials + (static_cast<size_t>(h.v) * x.item_cap + h.item) *
+                                   kPartial;
+#pragma unroll
+    for (int cy = 0; cy < kWarpY; ++cy)
+#pragma unroll
+      for (int cx = 0; cx < kWarpX; ++cx) {
+        const int cell = (by + cy) * kTileX + bx + cx;
+        __stcg(part + (2 * cell) * kMaxC + lane, ai[cy][cx]);
+        __stcg(part + (2 * cell + 1) * kMaxC + lane, ar[cy][cx]);
+      }
+    __threadfence();
+    sum_sync();
+    int* last = reinterpret_cast<int*>(bits + 2 * kTileY * kTileX);
+    if (t == 0)
+      *last = atomicAdd(x.tile_tickets + h.v * x.tiles + h.tile, 1) ==
+              h.ranges - 1;
+    sum_sync();
+    if (!*last) return;
+    __threadfence();
+    const float* p0 = part - static_cast<size_t>(h.range) * kPartial;
+#pragma unroll
+    for (int cy = 0; cy < kWarpY; ++cy)
+#pragma unroll
+      for (int cx = 0; cx < kWarpX; ++cx) {
+        const int cell = (by + cy) * kTileX + bx + cx;
+        float si = __ldcg(p0 + (2 * cell) * kMaxC + lane);
+        float sr = __ldcg(p0 + (2 * cell + 1) * kMaxC + lane);
+        for (int r = 1; r < h.ranges; ++r) {
+          si += __ldcg(p0 + r * kPartial + (2 * cell) * kMaxC + lane);
+          sr += __ldcg(p0 + r * kPartial + (2 * cell + 1) * kMaxC + lane);
+        }
+        ai[cy][cx] = si;
+        ar[cy][cx] = sr;
+      }
+  }
+  // The NaN path, for a view where an invalid point has a non-finite
+  // upstream value (its g * 0 is NaN): every cell that such a point's taps
+  // reach gets NaN in those channels (bits set with atomicOr: any order
+  // gives the same bits). In the bfloat16 instance, every cell of the
+  // point's 2 x 2 window (its anchor clipped to [0, fh-2] x [0, fw-2]), as
+  // `_feg_bwd` multiplies g * 0 by the zero weights too.
+  if (h.nan) {
+    const size_t vp = static_cast<size_t>(h.v) * P;
+    for (int i = t; i < 2 * kTileY * kTileX; i += kSumThreads) bits[i] = 0;
+    sum_sync();
+    for (int p = t; p < P; p += kSumThreads) {
+      if (valid[vp + p]) continue;
+      Anchor a = anchor_of(normalised(xy + 2 * vp, p, H, W), 0.0f, fh, fw);
+      if constexpr (sizeof(O) == 2) {   // the window
+        a.y = min(a.y, fh - 2);
+        a.x = min(a.x, fw - 2);
+        a.ddy = a.ddx = 1;
+      }
+      unsigned nb[2] = {0u, 0u};
+      bool read = false;
+      for (int dy = 0; dy <= a.ddy; ++dy)
+        for (int dx = 0; dx <= a.ddx; ++dx) {
+          const int ly = a.y + dy - ty0, lx = a.x + dx - tx0;
+          if (ly < 0 || ly >= kTileY || lx < 0 || lx >= kTileX) continue;
+          if (!read) {   // the channels where g is not finite
+            for (int ch = 0; ch < C; ++ch) {
+              nb[0] |= unsigned(!isfinite(to_f(d_rgb[(vp + p) * (3 + C) + 3 +
+                                                     ch])))
+                       << ch;
+              nb[1] |= unsigned(!isfinite(to_f(d_ray[(vp + p) * C + ch])))
+                       << ch;
+            }
+            read = true;
+          }
+          atomicOr(bits + ly * kTileX + lx, nb[0]);
+          atomicOr(bits + kTileY * kTileX + ly * kTileX + lx, nb[1]);
+        }
+    }
+    sum_sync();
+#pragma unroll
+    for (int cy = 0; cy < kWarpY; ++cy)
+#pragma unroll
+      for (int cx = 0; cx < kWarpX; ++cx) {
+        const int cell = (by + cy) * kTileX + bx + cx;
+        if (bits[cell] >> lane & 1) ai[cy][cx] = __int_as_float(0x7fffffff);
+        if (bits[kTileY * kTileX + cell] >> lane & 1)
+          ar[cy][cx] = __int_as_float(0x7fffffff);
+      }
+    sum_sync();   // the bits are read before the next item clears them
+  }
+  // each of the warp's cells once: four-channel stores (float4, or four
+  // bf16 in 8 bytes) from lanes [0, C/4) (the four channels gathered by
+  // shuffles), else one channel a lane
+#pragma unroll
+  for (int cy = 0; cy < kWarpY; ++cy)
+#pragma unroll
+    for (int cx = 0; cx < kWarpX; ++cx) {
+      const int y = ty0 + by + cy, xc = tx0 + bx + cx;
+      const size_t o = ((static_cast<size_t>(h.v) * fh + y) * fw + xc) * C;
+      if (kVec) {
+        float4 gi4, gr4;
+        const int src = 4 * lane % 32;
+        gi4.x = __shfl_sync(0xffffffffu, ai[cy][cx], src);
+        gi4.y = __shfl_sync(0xffffffffu, ai[cy][cx], src + 1);
+        gi4.z = __shfl_sync(0xffffffffu, ai[cy][cx], src + 2);
+        gi4.w = __shfl_sync(0xffffffffu, ai[cy][cx], src + 3);
+        gr4.x = __shfl_sync(0xffffffffu, ar[cy][cx], src);
+        gr4.y = __shfl_sync(0xffffffffu, ar[cy][cx], src + 1);
+        gr4.z = __shfl_sync(0xffffffffu, ar[cy][cx], src + 2);
+        gr4.w = __shfl_sync(0xffffffffu, ar[cy][cx], src + 3);
+        if (y < fh && xc < fw && 4 * lane < C) {
+          store4(d_img_feats + o + 4 * lane, gi4);
+          store4(d_ray_feats + o + 4 * lane, gr4);
+        }
+      } else if (y < fh && xc < fw && lane < C) {
+        d_img_feats[o + lane] = from_f<O>(ai[cy][cx]);
+        d_ray_feats[o + lane] = from_f<O>(ar[cy][cx]);
+      }
+    }
+}
+
+template <bool kVec, typename GI, typename GR, typename O>
+__global__ void __launch_bounds__(kPullThreads, kPullMinBlocks)
+pull_kernel(const float* __restrict__ xy,
+            const unsigned char* __restrict__ valid,
+            const GI* __restrict__ d_rgb, const GR* __restrict__ d_ray,
+            Index x, O* __restrict__ d_img_feats,
+            O* __restrict__ d_ray_feats, int V, int P, int H, int W, int fh,
+            int fw, int C) {
+  using S = PullSmem<GI, GR>;
+  // the grid covers the most work items a view can have; past the view's
+  // own, the block has none
+  if (static_cast<int>(blockIdx.x) / V >= x.nitems[blockIdx.x % V]) return;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* jobs_full = reinterpret_cast<uint64_t*>(smem + S::kBars);
+  uint64_t* meta_full = jobs_full + kMetaStages;
+  uint64_t* meta_empty = meta_full + kMetaStages;
+  uint64_t* rows_full = meta_empty + kMetaStages;
+  uint64_t* rows_empty = rows_full + kRowStages;
+  const int t = threadIdx.x, w = t / 32, lane = t % 32;
+  if (t == 0) {
+    for (int s = 0; s < kMetaStages; ++s) {
+      bar_init(jobs_full + s, 1);   // the producer
+      bar_init(meta_full + s, 1);
+      bar_init(meta_empty + s, kSumWarps);
+    }
+    for (int s = 0; s < kRowStages; ++s) {
+      bar_init(rows_full + s, kSumThreads);   // each thread's copies
+      bar_init(rows_empty + s, kSumWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (w == kSumWarps) {
+    produce(smem, jobs_full, meta_full, meta_empty, d_rgb, d_ray, x, V, P, C);
+    return;
+  }
+  // The summing warps: chunk q's rows are copied once every summing warp is
+  // done with chunk q - 1 (kRowStages 1: while they finish a work item and
+  // the producer sorts chunk q), or while they sum it (2, an ablation).
+  const int by = w / (kTileX / kWarpX) * kWarpY;
+  const int bx = w % (kTileX / kWarpX) * kWarpX;
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + S::kBits);
+  float ai[kWarpY][kWarpX] = {}, ar[kWarpY][kWarpX] = {};
+  long long stamps[6] = {0, 0, 0, 0, 0, 0}, stamp = kStamps ? clock64() : 0;
+  int chunks = 0;
+#define STAMP(i)                          \
+  if (kStamps) {                          \
+    const long long now = clock64();      \
+    stamps[i] += now - stamp;             \
+    stamp = now;                          \
+  }
+  const auto meta_of = [&](int q) {
+    return smem + S::kMeta + q % kMetaStages * S::kMetaStage;
+  };
+  const auto rows_of = [&](int q) {
+    return smem + q % kRowStages * S::kRowStage;
+  };
+  // chunk q's header once the producer has it and the copy jobs; its rows'
+  // copies started
+  const auto next = [&](int q) {
+    ring_wait(jobs_full, kMetaStages, q, false);
+    STAMP(3);
+    const Header h =
+        *reinterpret_cast<const Header*>(meta_of(q) + S::kHdr);
+    if (!(h.flags & kNoWork)) {
+      ring_wait(rows_empty, kRowStages, q, true);
+      STAMP(4);
+      copy_rows<GI, GR>(rows_of(q), meta_of(q), h, rows_full + q % kRowStages);
+      STAMP(5);
+    }
+    return h;
+  };
+  Header h = next(0);
+  for (int q = 0; !(h.flags & kNoWork); ++q) {
+    Header h_next;
+    if (kRowStages > 1) h_next = next(q + 1);
+    ring_wait(meta_full, kMetaStages, q, false);   // the records
+    ring_wait(rows_full, kRowStages, q, false);
+    STAMP(0);
+    ++chunks;
+    if (h.flags & kFirstChunk) {
+#pragma unroll
+      for (int cy = 0; cy < kWarpY; ++cy)
+#pragma unroll
+        for (int cx = 0; cx < kWarpX; ++cx) ai[cy][cx] = ar[cy][cx] = 0.0f;
+    }
+    const unsigned char* meta = meta_of(q);
+    const int* seg = reinterpret_cast<const int*>(meta + S::kSeg);
+    const Record* recs = reinterpret_cast<const Record*>(meta + S::kRecs);
+    const unsigned char* rows = rows_of(q);
+    // anchor (by + r, bx + c) of the region, row-major; lanes from C on
+    // sum what is never stored
+#pragma unroll
+    for (int r = 0; r <= kWarpY; ++r)
+#pragma unroll
+      for (int c = 0; c <= kWarpX; ++c)
+        pull_segment<GI, GR, O>(ai, ar, r, c, seg, recs, rows,
+                                (by + r) * (kTileX + 1) + bx + c, lane);
+    __syncwarp();
+    if (lane == 0) {
+      bar_arrive(rows_empty + q % kRowStages);
+      bar_arrive(meta_empty + q % kMetaStages);
+    }
+    STAMP(1);
+    if (kRowStages == 1) h_next = next(q + 1);
+    if (h.flags & kLastChunk) {
+      finish<kVec>(ai, ar, h, bits, xy, valid, d_rgb, d_ray, x, d_img_feats,
+                   d_ray_feats, P, H, W, fh, fw, C);
+      STAMP(2);
+    }
+    h = h_next;
+  }
+#undef STAMP
+  if (kStamps && t == 0 && blockIdx.x < kStampBlocks) {
+    for (int i = 0; i < 6; ++i) g_stamps[blockIdx.x][i] = stamps[i];
+    g_stamps[blockIdx.x][8] = chunks;
+  }
+}
+
+// The float32 instance's pull: block (view, i) owns the i-th tile of the
+// view, longest list first (its work item: the count pass does not split
+// float32 lists), all the block's warps together through each chunk of
+// kSyncChunk entries in five barrier-separated phases:
+//   1. per entry (a thread each), its record (the list entry: key, tap
+//      steps, weights) into shared memory (the entry was loaded during the
+//      chunk before);
+//   2. the gradient rows (d_rgb's channels 3.., d_ray) start to copy
+//      (cp.async, 4 bytes a lane, a warp a row at a time); warps
+//      0..kRankWarps-1 rank the entries by key (one round each);
+//   3. a thread a key turns the per-warp key counts into each key's
+//      segment;
+//   4. each entry's weights, key and list position go to its place in its
+//      key's segment, in list order (a stable sort); the copies are waited
+//      for;
+//   5. each warp walks the 3 x 3 anchor cells whose taps can reach its 2 x
+//      2 cells, in row-major order, each segment in list order, and adds
+//      each entry's contributions to the cells its taps land on
+//      (`pull_entry`).
+// So a cell sums chunk by chunk, its four anchor cells in turn, each in
+// list order. In float32 it was faster at the train pass's coordinates than
+// the pipelined pull, whose rows are a third larger in float32 (PERF.md).
+namespace sync_pull {
+
+constexpr int kWarpY = 2, kWarpX = 2;   // cells a warp owns
+constexpr int kWarps = kTileY / kWarpY * (kTileX / kWarpX);
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSyncChunk = 256;         // tile-list entries staged at a time
+constexpr int kRankWarps = kSyncChunk / 32;
+constexpr int kRow = 64;                // staged floats an entry: img | ray
+
+static_assert(kSyncChunk <= kThreads && kRankWarps <= kWarps, "chunk");
+static_assert(kKeys <= kThreads, "a thread a key in step 3");
+static_assert(2 * kTileY * kTileX <= kRankWarps * kKeys,
+              "the NaN path's bits fit in the rank histograms");
+
+constexpr size_t kSmem = sizeof(float) * kSyncChunk * kRow +
+                         2 * sizeof(float4) * kSyncChunk +
+                         sizeof(int) * (4 * kSyncChunk + kKeys + 1 +
+                                        kRankWarps * kKeys);
+
+__device__ __forceinline__ void segment(float ai[kWarpY][kWarpX],
+                                        float ar[kWarpY][kWarpX], int kAr,
+                                        int kAc, const int* seg,
+                                        const int* meta, const float4* wts,
+                                        const int* src, const float* rows,
+                                        int k, int lane) {
+#pragma unroll 4
+  for (int j = seg[k]; j < seg[k + 1]; ++j) {
+    const int mt = meta[j];
+    const int e = src[j];
+    float gi = rows[e * kRow + lane];
+    float gr = rows[e * kRow + 32 + lane];
+    if (!(mt >> 10 & 1)) {   // an invalid point left in: g * 0
+      gi *= 0.0f;
+      gr *= 0.0f;
+    }
+    pull_entry<kWarpY, kWarpX>(ai, ar, kAr, kAc, gi, gr, wts[j], mt >> 9 & 1,
+                               mt >> 8 & 1);
   }
 }
 
 // One float of global memory into shared memory, asynchronously
-// (cp.async, sm_80+); stage_wait() waits for the thread's copies (and is
-// the compiler's barrier for them: nothing reads a destination before it).
+// (cp.async); wait() waits for the thread's copies (and is the compiler's
+// barrier for them: nothing reads a destination before it).
 __device__ __forceinline__ void stage(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
                    static_cast<unsigned>(__cvta_generic_to_shared(dst))),
                "l"(src));
 }
-template <typename G>
-__device__ __forceinline__ void stage(float* dst, const G* src) {
-  *dst = to_f(*src);
-}
-__device__ __forceinline__ void stage_wait() {
+__device__ __forceinline__ void wait() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 }
 
-template <bool kVec, typename GI, typename GR, typename O>
-__global__ void __launch_bounds__(kPullThreads, 1024 / kPullThreads)
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
 pull_kernel(const float* __restrict__ xy,
             const unsigned char* __restrict__ valid,
-            const GI* __restrict__ d_rgb, const GR* __restrict__ d_ray,
-            Index x, O* __restrict__ d_img_feats,
-            O* __restrict__ d_ray_feats, int P, int H, int W, int fh,
+            const float* __restrict__ d_rgb, const float* __restrict__ d_ray,
+            Index x, float* __restrict__ d_img_feats,
+            float* __restrict__ d_ray_feats, int P, int H, int W, int fh,
             int fw, int C) {
   extern __shared__ float4 smem[];
-  float* rows = reinterpret_cast<float*>(smem);   // kChunk x kRow
-  float4* wts_in = smem + kChunk * kRow / 4;      // wx, owx, wy, owy
-  float4* wts = wts_in + kChunk;                  // sorted
-  int* meta_in = reinterpret_cast<int*>(wts + kChunk);   // key|ddx|ddy|m
-  int* meta = meta_in + kChunk;                   // sorted
-  int* pidx = meta + kChunk;
-  int* src = pidx + kChunk;                       // sorted: list position
-  int* seg = src + kChunk;                        // kKeys + 1
-  int* hist = seg + kKeys + 1;                // kRankWarps x kKeys
+  float* rows = reinterpret_cast<float*>(smem);   // kSyncChunk x kRow
+  float4* wts_in = smem + kSyncChunk * kRow / 4;  // wx, owx, wy, owy
+  float4* wts = wts_in + kSyncChunk;              // sorted
+  int* meta_in = reinterpret_cast<int*>(wts + kSyncChunk);   // key|ddx|ddy|m
+  int* meta = meta_in + kSyncChunk;               // sorted
+  int* pidx = meta + kSyncChunk;
+  int* src = pidx + kSyncChunk;                   // sorted: list position
+  int* seg = src + kSyncChunk;                    // kKeys + 1
+  int* hist = seg + kKeys + 1;                    // kRankWarps x kKeys
   const int v = blockIdx.x;
-  const int* order = x.order + 3 * (static_cast<size_t>(v) * x.tiles + blockIdx.y);
-  const int tile = order[0], begin = order[1], end = order[2];
+  const int4 item = x.items[static_cast<size_t>(v) * x.item_cap + blockIdx.y];
+  const int tile = item.x, begin = item.y, end = item.z;
   const int ty0 = tile / x.ntx * kTileY, tx0 = tile % x.ntx * kTileX;
   const int4* list = x.lists + v * x.list_cap;
   {
@@ -911,38 +1713,26 @@ pull_kernel(const float* __restrict__ xy,
   const int by = w / (kTileX / kWarpX) * kWarpY;
   const int bx = w % (kTileX / kWarpX) * kWarpX;
   float ai[kWarpY][kWarpX] = {}, ar[kWarpY][kWarpX] = {};
-  long long stamps[5] = {0, 0, 0, 0, 0}, stamp = kStamps ? clock64() : 0;
-#define STAMP(i)                          \
-  if (kStamps) {                          \
-    const long long now = clock64();      \
-    stamps[i] += now - stamp;             \
-    stamp = now;                          \
-  }
   // the next chunk's entry of this thread, loaded a chunk ahead
-  int4 next = t < min(kChunk, end - begin) ? list[begin + t]
-                                           : make_int4(0, 0, 0, 0);
-  for (int b = begin; b < end; b += kChunk) {
-    const int n = min(kChunk, end - b);
-    const int n_next = min(kChunk, end - b - kChunk);
+  int4 next = t < min(kSyncChunk, end - begin) ? list[begin + t]
+                                               : make_int4(0, 0, 0, 0);
+  for (int b = begin; b < end; b += kSyncChunk) {
+    const int n = min(kSyncChunk, end - b);
+    const int n_next = min(kSyncChunk, end - b - kSyncChunk);
     // 1.
-    for (int i = t; i < kRankWarps * kKeys; i += kPullThreads) hist[i] = 0;
+    for (int i = t; i < kRankWarps * kKeys; i += kThreads) hist[i] = 0;
     if (t < n) {
-      const float2 pxy = make_float2(__int_as_float(next.y),
-                                     __int_as_float(next.z));
-      const Anchor a = anchor_of(normalised(pxy, H, W),
-                                 next.x >= 0 ? 1.0f : 0.0f, fh, fw);
+      const float wx = __int_as_float(next.z), wy = __int_as_float(next.w);
       pidx[t] = next.x & 0x7fffffff;
-      wts_in[t] = make_float4(a.wx, a.owx, a.wy, a.owy);
-      meta_in[t] = ((a.y - ty0 + 1) * (kTileX + 1) + a.x - tx0 + 1) |
-                   a.ddx << 8 | a.ddy << 9 | (a.m != 0.0f) << 10;
+      wts_in[t] = make_float4(wx, 1.0f - wx, wy, 1.0f - wy);
+      meta_in[t] = next.y;
     }
-    if (t < n_next) next = list[b + kChunk + t];
+    if (t < n_next) next = list[b + kSyncChunk + t];
     __syncthreads();
-    STAMP(0);
     // 2. the rows' copies start (list order), then the ranks
-    if (kStageRows && lane < C) {
+    if (lane < C) {
 #pragma unroll 4
-      for (int e = w; e < n; e += kPullWarps) {
+      for (int e = w; e < n; e += kWarps) {
         const int p = pidx[e];
         stage(rows + e * kRow + lane, d_rgb + p * (3 + C) + 3 + lane);
         stage(rows + e * kRow + 32 + lane, d_ray + p * C + lane);
@@ -955,7 +1745,6 @@ pull_kernel(const float* __restrict__ xy,
       rank = warp_rank(hist + w * kKeys, key);
     }
     __syncthreads();
-    STAMP(1);
     // 3. hist[w][k] becomes the count of key k in warps before w (a thread
     //    a key), then seg[k] the count of keys before k (warp 0)
     if (t < kKeys) {
@@ -991,7 +1780,6 @@ pull_kernel(const float* __restrict__ xy,
       if (lane == 31) seg[kKeys] = incl;
     }
     __syncthreads();
-    STAMP(2);
     // 4. each entry's place in its key's segment, in list order
     if (key >= 0) {
       const int j = seg[key] + hist[w * kKeys + key] + rank;
@@ -999,48 +1787,27 @@ pull_kernel(const float* __restrict__ xy,
       wts[j] = wts_in[e];
       src[j] = e;
     }
-    if (kStageRows) stage_wait();
+    wait();
     __syncthreads();
-    STAMP(3);
     // 5. anchor (by + r, bx + c) of the region, row-major; lanes from C on
     //    sum what is never stored
 #pragma unroll
     for (int r = 0; r <= kWarpY; ++r)
 #pragma unroll
       for (int c = 0; c <= kWarpX; ++c)
-        pull_segment<GI, GR, O>(ai, ar, r, c, seg, meta, wts, src, rows,
-                                pidx, d_rgb, d_ray,
-                                (by + r) * (kTileX + 1) + bx + c, C, lane);
+        segment(ai, ar, r, c, seg, meta, wts, src, rows,
+                (by + r) * (kTileX + 1) + bx + c, lane);
     __syncthreads();
-    STAMP(4);
   }
-#undef STAMP
-  if (kStamps && t == 0 && v < 64 &&
-      (blockIdx.y == 0 || blockIdx.y == gridDim.y / 2)) {
-    long long* out = g_stamps[2 * v + (blockIdx.y != 0)];
-    for (int i = 0; i < 5; ++i) out[i] = stamps[i];
-    out[5] = (end - begin + kChunk - 1) / kChunk;
-    out[6] = end - begin;
-    out[7] = tile;
-  }
-  // The NaN path, for a view where an invalid point has a non-finite
-  // upstream value (its g * 0 is NaN): every cell that such a point's taps
-  // reach gets NaN in those channels (bits set with atomicOr: any order
-  // gives the same bits). In the bfloat16 instance, every cell of the
-  // point's 2 x 2 window (its anchor clipped to [0, fh-2] x [0, fw-2]), as
-  // `_feg_bwd` multiplies g * 0 by the zero weights too.
+  // The NaN path (see `finish`): every cell that an invalid point with a
+  // non-finite upstream value reaches gets NaN in those channels.
   if (kDropInvalid && x.flags[v]) {
     unsigned* nan_bits = reinterpret_cast<unsigned*>(hist);   // [2][cells]
-    for (int i = t; i < 2 * kTileY * kTileX; i += kPullThreads) nan_bits[i] = 0;
+    for (int i = t; i < 2 * kTileY * kTileX; i += kThreads) nan_bits[i] = 0;
     __syncthreads();
-    for (int p = t; p < P; p += kPullThreads) {
+    for (int p = t; p < P; p += kThreads) {
       if (valid[p]) continue;
-      Anchor a = anchor_of(normalised(xy, p, H, W), 0.0f, fh, fw);
-      if constexpr (sizeof(O) == 2) {   // the window
-        a.y = min(a.y, fh - 2);
-        a.x = min(a.x, fw - 2);
-        a.ddy = a.ddx = 1;
-      }
+      const Anchor a = anchor_of(normalised(xy, p, H, W), 0.0f, fh, fw);
       unsigned bits[2] = {0u, 0u};
       bool read = false;
       for (int dy = 0; dy <= a.ddy; ++dy)
@@ -1049,9 +1816,8 @@ pull_kernel(const float* __restrict__ xy,
           if (ly < 0 || ly >= kTileY || lx < 0 || lx >= kTileX) continue;
           if (!read) {   // the channels where g is not finite
             for (int ch = 0; ch < C; ++ch) {
-              bits[0] |= unsigned(!isfinite(to_f(d_rgb[p * (3 + C) + 3 + ch])))
-                         << ch;
-              bits[1] |= unsigned(!isfinite(to_f(d_ray[p * C + ch]))) << ch;
+              bits[0] |= unsigned(!isfinite(d_rgb[p * (3 + C) + 3 + ch])) << ch;
+              bits[1] |= unsigned(!isfinite(d_ray[p * C + ch])) << ch;
             }
             read = true;
           }
@@ -1070,9 +1836,8 @@ pull_kernel(const float* __restrict__ xy,
           ar[cy][cx] = __int_as_float(0x7fffffff);
       }
   }
-  // each of the warp's cells once: four-channel stores (float4, or four
-  // bf16 in 8 bytes) from lanes [0, C/4) (the four channels gathered by
-  // shuffles), else one channel a lane
+  // each of the warp's cells once: float4 stores from lanes [0, C/4) (the
+  // four channels gathered by shuffles), else one channel a lane
 #pragma unroll
   for (int cy = 0; cy < kWarpY; ++cy)
 #pragma unroll
@@ -1081,29 +1846,27 @@ pull_kernel(const float* __restrict__ xy,
       const size_t o = ((static_cast<size_t>(v) * fh + y) * fw + xc) * C;
       if (kVec) {
         float4 gi4, gr4;
-        const int src = 4 * lane % 32;
-        gi4.x = __shfl_sync(0xffffffffu, ai[cy][cx], src);
-        gi4.y = __shfl_sync(0xffffffffu, ai[cy][cx], src + 1);
-        gi4.z = __shfl_sync(0xffffffffu, ai[cy][cx], src + 2);
-        gi4.w = __shfl_sync(0xffffffffu, ai[cy][cx], src + 3);
-        gr4.x = __shfl_sync(0xffffffffu, ar[cy][cx], src);
-        gr4.y = __shfl_sync(0xffffffffu, ar[cy][cx], src + 1);
-        gr4.z = __shfl_sync(0xffffffffu, ar[cy][cx], src + 2);
-        gr4.w = __shfl_sync(0xffffffffu, ar[cy][cx], src + 3);
+        const int s4 = 4 * lane % 32;
+        gi4.x = __shfl_sync(0xffffffffu, ai[cy][cx], s4);
+        gi4.y = __shfl_sync(0xffffffffu, ai[cy][cx], s4 + 1);
+        gi4.z = __shfl_sync(0xffffffffu, ai[cy][cx], s4 + 2);
+        gi4.w = __shfl_sync(0xffffffffu, ai[cy][cx], s4 + 3);
+        gr4.x = __shfl_sync(0xffffffffu, ar[cy][cx], s4);
+        gr4.y = __shfl_sync(0xffffffffu, ar[cy][cx], s4 + 1);
+        gr4.z = __shfl_sync(0xffffffffu, ar[cy][cx], s4 + 2);
+        gr4.w = __shfl_sync(0xffffffffu, ar[cy][cx], s4 + 3);
         if (y < fh && xc < fw && 4 * lane < C) {
           store4(d_img_feats + o + 4 * lane, gi4);
           store4(d_ray_feats + o + 4 * lane, gr4);
         }
       } else if (y < fh && xc < fw && lane < C) {
-        d_img_feats[o + lane] = from_f<O>(ai[cy][cx]);
-        d_ray_feats[o + lane] = from_f<O>(ar[cy][cx]);
+        d_img_feats[o + lane] = ai[cy][cx];
+        d_ray_feats[o + lane] = ar[cy][cx];
       }
     }
 }
 
-constexpr size_t kPullSmem =
-    sizeof(float) * kChunk * kRow + 2 * sizeof(float4) * kChunk +
-    sizeof(int) * (4 * kChunk + kKeys + 1 + kRankWarps * kKeys);
+}  // namespace sync_pull
 
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
@@ -1166,7 +1929,9 @@ static cudaError_t allow_smem() {
   static unsigned long long done = 0;   // one bit per device ordinal
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev >= 64 || (done >> dev & 1)) return err;
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (done >> dev & 1) return cudaSuccess;
   const int index_smem = static_cast<int>(sizeof(int)) * kIndexWarps * kMaxTiles;
   err = cudaFuncSetAttribute(index_kernel<false, GI, GR>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1175,19 +1940,23 @@ static cudaError_t allow_smem() {
     err = cudaFuncSetAttribute(index_kernel<true, GI, GR>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                index_smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(pull_kernel<true, GI, GR, O>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kPullSmem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(pull_kernel<false, GI, GR, O>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kPullSmem));
+  for (int vec = 0; vec < 2 && err == cudaSuccess; ++vec) {
+    if constexpr (sizeof(O) == 4 && kSyncPullF32)
+      err = cudaFuncSetAttribute(
+          vec ? sync_pull::pull_kernel<true> : sync_pull::pull_kernel<false>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(sync_pull::kSmem));
+    else
+      err = cudaFuncSetAttribute(
+          vec ? pull_kernel<true, GI, GR, O> : pull_kernel<false, GI, GR, O>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          PullSmem<GI, GR>::kBytes);
+  }
   if (err == cudaSuccess) done |= 1ULL << dev;
   return err;
 }
 
-// kStamps builds: the stamps of the last call (2 x 64 x 8 long longs).
+// kStamps builds: the stamps of the last call (kStampBlocks x 10 long longs).
 extern "C" int epipolar_gather_backward_stamps(long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps)));
 }
@@ -1200,10 +1969,27 @@ extern "C" long long epipolar_gather_backward_scratch(int V, int P, int fh,
   return x.tiles > kMaxTiles ? -1 : x.ints;
 }
 
+// Where a call's index lies in its scratch, for reading it back: the int32
+// offsets of the tile starts ([V][tiles + 1]) and of the views' work-item
+// counts ([V]), the tiles a view; then, for the `bf16_instance`'s pull (0
+// float32, 1 bfloat16), the entries a chunk and the chunks a work item at
+// most (0: whole lists).
+extern "C" int epipolar_gather_backward_layout(int V, int P, int fh, int fw,
+                                               int bf16_instance,
+                                               long long* out) {
+  const Index x = index_layout(nullptr, V, P, fh, fw);
+  out[0] = x.starts_at;
+  out[1] = x.nitems_at;
+  out[2] = x.tiles;
+  out[3] = bf16_instance ? kChunk : sync_pull::kSyncChunk;
+  out[4] = bf16_instance ? kSplit : 0;
+  return 0;
+}
+
 // CUDA launches of one epipolar_gather_backward call without d_imgs (with
 // it: the same, the caller zeroes d_imgs); the bfloat16 instance's too.
 extern "C" int epipolar_gather_backward_launches() {
-  return static_cast<int>(kRunIndex) * 3 + static_cast<int>(kRunPull);
+  return 1 + static_cast<int>(kRunIndex) * 2 + static_cast<int>(kRunPull);
 }
 
 template <typename GI, typename GR, typename O>
@@ -1213,7 +1999,8 @@ static int backward(const float* xy, const unsigned char* valid,
                     int H, int W, int fh, int fw, int C, cudaStream_t stream) {
   if (V == 0) return 0;
   const Index x = index_layout(scratch, V, P, fh, fw);
-  if (x.tiles > kMaxTiles) return static_cast<int>(cudaErrorInvalidValue);
+  if (x.tiles > kMaxTiles || C > kMaxC)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (P == 0) {   // no point: both maps' gradients are 0
     const size_t bytes = sizeof(O) * V * fh * fw * C;
@@ -1223,27 +2010,37 @@ static int backward(const float* xy, const unsigned char* valid,
   }
   err = allow_smem<GI, GR, O>();
   if (err != cudaSuccess) return static_cast<int>(err);
+  // the count pass's tickets and the flags
+  err = cudaMemsetAsync(x.tickets, 0, sizeof(int) * x.zeroed, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (kRunIndex) {
-    const dim3 grid(x.chunks, V);
+    const dim3 blocks(x.chunks, V);
     const size_t smem = sizeof(int) * kIndexWarps * x.tiles;
-    err = cudaMemsetAsync(x.tickets, 0, sizeof(int) * 2 * V, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    index_kernel<false, GI, GR><<<grid, kIndexWarps * 32, smem, stream>>>(
+    index_kernel<false, GI, GR><<<blocks, kIndexThreads, smem, stream>>>(
         xy, valid, d_rgb, d_ray, d_imgs, x, P, H, W, fh, fw, C);
-    index_kernel<true, GI, GR><<<grid, kIndexWarps * 32, smem, stream>>>(
+    index_kernel<true, GI, GR><<<blocks, kIndexThreads, smem, stream>>>(
         xy, valid, d_rgb, d_ray, nullptr, x, P, H, W, fh, fw, C);
   }
   if (kRunPull) {
-    const dim3 grid(V, x.tiles);   // the views' longest lists first
     // stores of four channels
     const size_t v4 = 4 * sizeof(O);
     const bool vec = C % 4 == 0 && aligned(d_img_feats, v4) &&
                      aligned(d_ray_feats, v4);
-    const auto kernel = vec ? pull_kernel<true, GI, GR, O>
-                            : pull_kernel<false, GI, GR, O>;
-    kernel<<<grid, kPullThreads, kPullSmem, stream>>>(
-        xy, valid, d_rgb, d_ray, x, d_img_feats, d_ray_feats, P, H, W, fh, fw,
-        C);
+    if constexpr (sizeof(O) == 4 && kSyncPullF32) {   // a block a tile
+      const auto kernel = vec ? sync_pull::pull_kernel<true>
+                              : sync_pull::pull_kernel<false>;
+      kernel<<<dim3(V, x.tiles), sync_pull::kThreads, sync_pull::kSmem,
+               stream>>>(xy, valid, d_rgb, d_ray, x, d_img_feats, d_ray_feats,
+                         P, H, W, fh, fw, C);
+    } else {
+      // a block per work item, the views' i-th items together (longest
+      // first)
+      const auto kernel = vec ? pull_kernel<true, GI, GR, O>
+                              : pull_kernel<false, GI, GR, O>;
+      kernel<<<V * x.item_cap, kPullThreads, PullSmem<GI, GR>::kBytes,
+               stream>>>(xy, valid, d_rgb, d_ray, x, d_img_feats, d_ray_feats,
+                         V, P, H, W, fh, fw, C);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1288,20 +2085,30 @@ static int backward_info(int* out) {
   cudaError_t err = cudaFuncGetAttributes(&attr[0], index_kernel<false, GI, GR>);
   if (err == cudaSuccess)
     err = cudaFuncGetAttributes(&attr[1], index_kernel<true, GI, GR>);
-  if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr[2], pull_kernel<true, GI, GR, O>);
+  int per_sm = 0, smem = 0;
   if (err == cudaSuccess) err = allow_smem<GI, GR, O>();
-  int per_sm = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pull_kernel<true, GI, GR, O>, kPullThreads, kPullSmem);
+  if constexpr (sizeof(O) == 4 && kSyncPullF32) {
+    smem = static_cast<int>(sync_pull::kSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncGetAttributes(&attr[2], sync_pull::pull_kernel<true>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, sync_pull::pull_kernel<true>, sync_pull::kThreads, smem);
+  } else {
+    smem = PullSmem<GI, GR>::kBytes;
+    if (err == cudaSuccess)
+      err = cudaFuncGetAttributes(&attr[2], pull_kernel<true, GI, GR, O>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, pull_kernel<true, GI, GR, O>, kPullThreads, smem);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int i = 0; i < 3; ++i) {
     out[3 * i] = attr[i].numRegs;
     out[3 * i + 1] = static_cast<int>(attr[i].localSizeBytes);
     out[3 * i + 2] = static_cast<int>(attr[i].sharedSizeBytes);
   }
-  out[9] = static_cast<int>(kPullSmem);
+  out[9] = smem;
   out[10] = per_sm;
   return 0;
 }

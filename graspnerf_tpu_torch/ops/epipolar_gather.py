@@ -112,6 +112,9 @@ def library() -> ctypes.CDLL:
         lib.epipolar_gather_backward_xy_info.restype = ctypes.c_int
         lib.epipolar_gather_backward_scratch.argtypes = [ctypes.c_int] * 4
         lib.epipolar_gather_backward_scratch.restype = ctypes.c_longlong
+        lib.epipolar_gather_backward_layout.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.epipolar_gather_backward_layout.restype = ctypes.c_int
         for name in ("epipolar_gather_backward_info",
                      "epipolar_gather_backward_bf16_info"):
             getattr(lib, name).argtypes = [ctypes.c_void_p]
@@ -241,6 +244,7 @@ def backward_launcher(d_imgs, d_img_feats, d_ray_feats, xy, valid, d_rgb,
         epipolar_gather_backward.bf16_launches += bf16
         return keep[:3]   # the closure keeps all eight alive
 
+    launch.index = (scratch, V, P, fh, fw, bf16)   # `backward_index_stats`
     return launch
 
 
@@ -248,6 +252,28 @@ def backward_cuda_launches() -> int:
     """CUDA launches (memsets included) of one backward call without
     d_imgs, as built (both instances)."""
     return library().epipolar_gather_backward_launches()
+
+
+def backward_index_stats(launch) -> dict:
+    """What the last call of a `backward_launcher` call put in its index:
+    the longest tile list (entries, chunks of its instance's pull, work
+    items it was cut into), the list entries, the tiles a view and the work
+    items of each view."""
+    scratch, V, P, fh, fw, bf16 = launch.index
+    out = (ctypes.c_longlong * 5)()
+    build.check(library().epipolar_gather_backward_layout(V, P, fh, fw, bf16,
+                                                          out),
+                "epipolar_gather_backward_layout")
+    starts_at, nitems_at, tiles, chunk, split = out
+    starts = scratch[starts_at:starts_at + V * (tiles + 1)].view(V, tiles + 1)
+    lengths = starts[:, 1:] - starts[:, :-1]
+    longest = int(lengths.max())
+    chunks = -(-longest // chunk)
+    return {"longest_list": longest, "longest_chunks": chunks,
+            "longest_ranges": -(-chunks // split) if split else 1,
+            "entries": int(lengths.sum()), "chunk": chunk,
+            "split_chunks": split, "tiles": tiles,
+            "work_items": scratch[nitems_at:nitems_at + V].tolist()}
 
 
 def backward_kernel_info(dtype=F32) -> dict:

@@ -15,25 +15,31 @@ volume path's P = 64,000, the planner's own coordinates there (its 40^3 grid
 projected into the synthetic scene's six 288 x 512 views), and random
 coordinates at the render pass's P = 163,840.
 
-With `--backward`, the same for the backward (`epipolar_gather_backward`):
-the build as it is; each entry of BACKWARD_VARIANTS (tile, chunk and index
-sizes, ranks from shuffles, the gradient rows read from global memory or
-copied through registers, invalid points kept in the index, the pull's
-phases in SM cycles (`stamps`), and probes that leave out the finiteness
-check of the invalid points, or launch the index passes alone or the pull
-alone on an index built beforehand); and with `--against FILE` that source
-(an earlier commit's, whose backward adds into zeroed outputs with
-atomics) and, as `against_merged`, that source with the reductions of
-equal taps merged across a warp first (`__match_any_sync`). Every build but
-the probes is held to the plain version; each build's bare call (all its
-CUDA launches, into preallocated outputs) is timed on random and the
+With `--backward`, the same for the backward (`epipolar_gather_backward`
+and `epipolar_gather_backward_bf16`, each build's two instances): the build
+as it is; each entry of BACKWARD_VARIANTS (the pull's rows copied by
+TMA bulk copies or through registers instead of 16-byte cp.async, one or
+three row stages instead of two, two meta stages instead of four, long lists not split or split at other lengths, a block per work
+item instead of the persistent grid, other chunks and warp shapes, ranks
+from shuffles, invalid points kept in the index, the pull's roles in SM
+cycles (`stamps`), and probes that leave out the finiteness check of the
+invalid points, or launch the index passes alone or the pull alone on an
+index built beforehand); and with `--against FILE` that source (an earlier
+commit's: a pull, or the atomic design, whose backward adds into zeroed
+outputs). A build nvcc refuses is left out with its log. Every build but
+the probes is held to the plain version (float32 within chip_smoke.py's
+atol and rtol, bfloat16 bit-equal but for 1e-3 of the values one ulp
+apart) and its two launches to each other; each build's bare call (all
+its CUDA launches, into preallocated outputs) is timed on random and the
 planner's coordinates at P = 64,000 and on a training batch's coarse-pass
-coordinates at P = 20,480, beside one `zero_` of the two outputs (what the
-atomic design's wrapper adds); the build's own call is also broken down by
-device event (torch.profiler). Run from the repository root on a machine
-with a CUDA card:
+coordinates at P = 20,480, beside one `zero_` of the two bfloat16 outputs
+(what the atomic design's wrapper adds); the longest tile list and the
+work items are read from the index, and the build's own call is broken
+down by device event (torch.profiler). Run from the repository root on a
+machine with a CUDA card:
 
-    python3 -m graspnerf_tpu_torch.tools.gather_variants [--backward] [--against FILE]
+    python3 -m graspnerf_tpu_torch.tools.gather_variants [--backward
+        [--variants A,B]] [--against FILE ...]
 """
 from __future__ import annotations
 
@@ -114,36 +120,64 @@ def bwd_sub(name, old, new):
     return [[f"constexpr int {name} = {old};", f"constexpr int {name} = {new};"]]
 
 
+def bwd_flag(name, old, new):
+    return [[f"constexpr bool {name} = {old};",
+             f"constexpr bool {name} = {new};"]]
+
+
+UNROLL_2 = [["#pragma unroll 1\n  for (int j = seg[k]; j < end;",
+             "#pragma unroll 2\n  for (int j = seg[k]; j < end;"]]
+WARPS_2X2 = [["constexpr int kWarpY = 2, kWarpX = 4;",
+              "constexpr int kWarpY = 2, kWarpX = 2;"]]
+
 BACKWARD_VARIANTS = {
-    "tile_4x8": [["constexpr int kTileY = 8, kTileX = 8;",
-                  "constexpr int kTileY = 4, kTileX = 8;"]],
-    "tile_8x16": [["constexpr int kTileY = 8, kTileX = 8;",
-                   "constexpr int kTileY = 8, kTileX = 16;"]],
-    "chunk_128": bwd_sub("kChunk", 256, 128),
-    "chunk_512": bwd_sub("kChunk", 256, 512),
+    # the pull's design choices undone or moved: rows by a TMA bulk copy
+    # each (a thread an entry) or through registers instead of 16-byte
+    # cp.async a thread a block; two row stages (a chunk's rows copied
+    # during the sums of the chunk before it, not after); two or four meta
+    # stages (the producer at most two or four chunks ahead); long lists
+    # not split, or split at other lengths; other chunks; the summing warps' segment
+    # loops unrolled twice (twice their code); summing warps of 2 x 2 cells
+    # (16 of them, at most 2 blocks an SM); other register caps (2 or 4
+    # blocks an SM)
+    "rows_tma": bwd_sub("kRowCopy", 1, 2),
+    "rows_registers": bwd_sub("kRowCopy", 1, 0),
+    "two_row_stages": [["kRowStages = 1, kMetaStages = 3;",
+                        "kRowStages = 2, kMetaStages = 3;"]],
+    "two_meta_stages": [["kRowStages = 1, kMetaStages = 3;",
+                         "kRowStages = 1, kMetaStages = 2;"]],
+    "four_meta_stages": [["kRowStages = 1, kMetaStages = 3;",
+                          "kRowStages = 1, kMetaStages = 4;"]],
+    "no_split": bwd_sub("kSplit", 8, 65536),
+    "split_4": bwd_sub("kSplit", 8, 4),
+    "split_16": bwd_sub("kSplit", 8, 16),
+    "split_2": bwd_sub("kSplit", 8, 2),
+    "chunk_64": bwd_sub("kChunk", 128, 64),
+    "chunk_256": bwd_sub("kChunk", 128, 256),
+    "segments_unroll_2": UNROLL_2,
+    "warps_2x2": WARPS_2X2 + bwd_sub("kPullMinBlocks", 3, 2),
+    "min_blocks_2": bwd_sub("kPullMinBlocks", 3, 2),
+    "four_blocks": bwd_sub("kPullMinBlocks", 3, 4),
+    # float32 through the pipelined pull (its lists whole), not the
+    # block-synchronous one
+    "float32_pipelined": bwd_flag("kSyncPullF32", "true", "false"),
+    # index blocks of 4 rounds of 32 points a warp: half the chunks the
+    # count pass's last block scans
     "index_rounds_4": bwd_sub("kRounds", 2, 4),
     "rank_by_shuffles": [   # peers from 32 shuffles, not match.any
         ["  const unsigned peers = __match_any_sync(0xffffffffu, key);",
          "  unsigned peers = 0;\n"
          "  for (int j = 0; j < 32; ++j)\n"
          "    peers |= unsigned(__shfl_sync(0xffffffffu, key, j) == key) << j;"]],
-    "rows_from_global": [["constexpr bool kStageRows = true;",
-                          "constexpr bool kStageRows = false;"]],
-    "rows_plain_loads": [   # the row copies through registers, not cp.async
-        ['  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(\n'
-         '                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),\n'
-         '               "l"(src));', "  *dst = *src;"]],
     # invalid points left out unchecked: a non-finite upstream value there
     # would not reach the maps (unlike the plain version); what the check
     # costs
     "probe_no_finite_check": [[
         "    const bool check = kFill && out && p < P;",
         "    const bool check = false;"]],
-    "keep_invalid": [["constexpr bool kDropInvalid = true;",
-                      "constexpr bool kDropInvalid = false;"]],
-    # the pull's phases in SM cycles (clock64 after each barrier)
-    "stamps": [["constexpr bool kStamps = false;",
-                "constexpr bool kStamps = true;"]],
+    "keep_invalid": bwd_flag("kDropInvalid", "true", "false"),
+    # the pull's roles in SM cycles (clock64 around each wait and phase)
+    "stamps": bwd_flag("kStamps", "false", "true"),
     # probes: one part of a call alone
     "probe_index_only": [["kRunIndex = true, kRunPull = true;",
                           "kRunIndex = true, kRunPull = false;"]],
@@ -151,63 +185,15 @@ BACKWARD_VARIANTS = {
                          "kRunIndex = false, kRunPull = true;"]],
 }
 
-# The atomic design (an earlier source, --against) with each warp's equal
-# taps merged before the reductions: lanes that hold the same four channels
-# of points with the same taps sum their contributions with shuffles, and
-# the lowest of them issues the four vector reductions.
-MERGE_HELPER = """
-__device__ __forceinline__ void taps4(float t[16], const Point& q, float4 g) {
-  const float gg[4] = {g.x * q.m, g.y * q.m, g.z * q.m, g.w * q.m};
-  for (int j = 0; j < 4; ++j) {
-    const float top = gg[j] * q.owy, bot = gg[j] * q.wy;
-    t[j] = top * q.owx;
-    t[4 + j] = top * q.wx;
-    t[8 + j] = bot * q.owx;
-    t[12 + j] = bot * q.wx;
-  }
-}
-
-__device__ __forceinline__ void merged_splat4(float* map, const Point& q,
-                                              float4 g) {
-  float t[16];
-  taps4(t, q, g);
-  const unsigned long long key =
-      static_cast<unsigned long long>(reinterpret_cast<uintptr_t>(map + q.o00))
-          << 2 | (q.dx != 0) << 1 | (q.dy != 0);
-  const unsigned peers = __match_any_sync(__activemask(), key);
-  const int lane = threadIdx.x % 32;
-  float u[16] = {};
-  for (unsigned rest = peers; rest; rest &= rest - 1) {
-    const int j = __ffs(rest) - 1;
-    for (int i = 0; i < 16; ++i) u[i] += __shfl_sync(peers, t[i], j);
-  }
-  if (lane != __ffs(peers) - 1) return;
-  float* m = map + q.o00;
-  red4(m, u[0], u[1], u[2], u[3]);
-  red4(m + q.dx, u[4], u[5], u[6], u[7]);
-  red4(m + q.dy, u[8], u[9], u[10], u[11]);
-  red4(m + q.dy + q.dx, u[12], u[13], u[14], u[15]);
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-gather_backward_kernel("""
-AGAINST_MERGED = [
-    ["template <bool kVec>\n__global__ void __launch_bounds__(kThreads)\n"
-     "gather_backward_kernel(", MERGE_HELPER],
-    ["      splat4(d_ray_feats + c, q, ld4(d_ray + p * C + c));",
-     "      merged_splat4(d_ray_feats + c, q, ld4(d_ray + p * C + c));"],
-    ["      splat4(d_img_feats + c, q, make_float4(gi[0], gi[1], gi[2], gi[3]));",
-     "      merged_splat4(d_img_feats + c, q,\n"
-     "                    make_float4(gi[0], gi[1], gi[2], gi[3]));"]]
 BWD_CASES = {"random P=64000": ("random", 64000),
              "planner P=64000": ("planner", 64000),
              "train P=20480": ("train", 20480)}
 BWD_ATOL, BWD_RTOL = 5e-4, 1e-5   # chip_smoke.py's, against the plain version
 
 
-def compile_all(srcs):
-    """{name: source text} -> {name: (CDLL, path, ptxas register lines)}."""
+def compile_all(srcs, strict=True):
+    """{name: source text} -> {name: (CDLL, path, ptxas register lines)}.
+    strict=False leaves out a build nvcc refuses (its log printed)."""
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     flags = build.ARCH_FLAGS + build.COMMON_FLAGS + build.EXTRA_FLAGS.get(
         "epipolar_gather", [])
@@ -224,7 +210,10 @@ def compile_all(srcs):
     for name, (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            if strict:
+                raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            print(f"nvcc failed for {name}, left out:\n{log[-6000:]}")
+            continue
         lib = ctypes.CDLL(so)
         lib.epipolar_gather_forward.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
@@ -278,8 +267,12 @@ def launcher(lib, args, outs):
     return launch
 
 
+INSTANCES = {"float32": ("epipolar_gather_backward", torch.float32),
+             "bfloat16": ("epipolar_gather_backward_bf16", torch.bfloat16)}
+
+
 def bwd_inputs(dev, coords, P, seed=0):
-    """(xy, valid, d_rgb, d_ray) on the card."""
+    """(xy, valid, d_rgb, d_ray) on the card, float32."""
     gen = torch.Generator().manual_seed(seed)
     if coords == "train":
         xy, valid = train_coords(training_batch(np.random.RandomState(seed),
@@ -292,14 +285,19 @@ def bwd_inputs(dev, coords, P, seed=0):
     return [t.to(dev) for t in (xy, valid, d_rgb, d_ray)]
 
 
-def bwd_launcher(lib, ins, outs, scratch):
-    """The bare call of a build's backward into outs (d_imgs stand-in,
-    d_img_feats, d_ray_feats): the pull's interface with `scratch`, or the
-    atomic design's, which adds into them."""
-    P = ins[0].shape[1]
-    fn = lib.epipolar_gather_backward
+def bwd_launcher(lib, ins, outs, scratch, instance="float32"):
+    """The bare call of a build's backward instance into outs (d_imgs
+    stand-in, d_img_feats, d_ray_feats, of the instance's dtype): the
+    pull's interface with `scratch`, or the atomic design's, which adds
+    into them. ins: the float32 (xy, valid, d_rgb, d_ray); the bfloat16
+    instance takes d_rgb rounded to bfloat16."""
+    name, dtype = INSTANCES[instance]
+    xy, valid, d_rgb, d_ray = ins
+    d_rgb = d_rgb.to(dtype)
+    P = xy.shape[1]
+    fn = getattr(lib, name)
     pull = hasattr(lib, "epipolar_gather_backward_scratch")
-    ptrs = ([t.data_ptr() for t in ins] + [None]
+    ptrs = ([t.data_ptr() for t in (xy, valid, d_rgb, d_ray)] + [None]
             + [o.data_ptr() for o in outs[1:]])
     if pull:
         ptrs.append(scratch.data_ptr())
@@ -309,8 +307,8 @@ def bwd_launcher(lib, ins, outs, scratch):
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        build.check(fn(*ptrs, V, P, H, W, H // 4, W // 4, C, stream),
-                    "epipolar_gather_backward")
+        build.check(fn(*ptrs, V, P, H, W, H // 4, W // 4, C, stream), name)
+    launch.keep = d_rgb
     return launch
 
 
@@ -333,104 +331,193 @@ def device_us(fn, calls=5):
         for k in range(calls)) / calls) for i in range(per_call)]
 
 
-def print_stamps(case, lib, ins, outs, scratch):
-    """The stamps build's pull phases, per view: the first block (the
-    longest list) and the middle one."""
-    bwd_launcher(lib, ins, outs, scratch)()
+def print_stamps(case, lib, launch):
+    """The stamps build's pull, per block: SM cycles of its first summing
+    warp and of its producer warp by part, per chunk, over the blocks that
+    took chunks, and the busiest block."""
+    launch()
     torch.cuda.synchronize()
-    buf = (ctypes.c_longlong * (2 * 64 * 8))()
+    buf = (ctypes.c_longlong * (128 * 10))()
     lib.epipolar_gather_backward_stamps.argtypes = [ctypes.c_void_p]
     build.check(lib.epipolar_gather_backward_stamps(buf), "stamps")
-    print(f"{case}: pull phases, SM cycles (1 entries, 2 copies start + "
-          f"ranks, 3 key scan, 4 scatter + copies wait, 5 sums), chunks, "
-          f"entries, tile; per view, longest list | middle tile:")
-    for v in range(V):
-        print("  view", v, " | ".join(
-            str(list(buf[(2 * v + i) * 8:(2 * v + i + 1) * 8]))
-            for i in range(2)))
+    rows = [list(buf[10 * b:10 * b + 10]) for b in range(128)]
+    rows = [r for r in rows if r[8] > 0]
+    parts = ("sum warp: wait for rows", "sums", "finish",
+             "wait for next header", "wait for free row stage",
+             "start copies", "producer: wait", "sort")
+    per = {p: sum(r[i] for r in rows) / max(1, sum(r[8] for r in rows))
+           for i, p in enumerate(parts)}
+    busy = max(rows, key=lambda r: r[8]) if rows else None
+    # a summing warp's cycles in the pull, and chunks, over the blocks
+    total = sorted(sum(r[:6]) for r in rows)
+    chunks = sorted(r[8] for r in rows)
+    spread = {"cycles min / median / max": total[::max(1, len(total) // 2)]
+              + total[-1:], "chunks": chunks[::max(1, len(chunks) // 2)]
+              + chunks[-1:]}
+    print(f"{case}: pull stamps over {len(rows)} blocks, SM cycles a chunk "
+          + json.dumps({k: round(v) for k, v in per.items()})
+          + f"; per block {json.dumps(spread)}; the block with most chunks "
+          f"[{', '.join(parts)}, chunks, items]: {busy}")
 
 
-def backward_main(src, against, dev) -> int:
+def bwd_check(got, want, scale, instance):
+    """Whether a build's maps' gradients match the plain version's:
+    float32 within chip_smoke.py's atol and rtol; bfloat16 bit-equal but
+    for at most 1e-3 of the values, each within one bfloat16 ulp of the
+    cell's scale."""
+    if instance == "float32":
+        return all(torch.allclose(g, w, atol=BWD_ATOL, rtol=BWD_RTOL)
+                   for g, w in zip(got, want))
+    for g, w, a in zip(got, want, scale):
+        g, w, a = g.float(), w.float(), a.float()
+        big = torch.maximum(torch.maximum(g.abs(), w.abs()), a)
+        ulp = torch.exp2(torch.floor(torch.log2(big.clamp_min(1e-38))) - 7)
+        differ = g != w
+        if (differ.float().mean() > 1e-3
+                or bool(((g - w).abs() > ulp)[differ].any())):
+            return False
+    return True
+
+
+def backward_main(src, against, dev, only=None) -> int:
     from ..ops.epipolar_gather import epipolar_gather_backward_plain
     srcs = {"kernel": src}
     for name, subs in BACKWARD_VARIANTS.items():
-        srcs[name] = variant(src, subs)
-    if against:
-        srcs["against"] = against
-        srcs["against_merged"] = variant(against, AGAINST_MERGED)
-    libs = compile_all(srcs)
+        if only is None or name in only:
+            srcs[name] = variant(src, subs)
+    for k, text in enumerate(against):   # against, against_1, ...
+        srcs["against" + (f"_{k}" if k else "")] = text
+    libs = compile_all(srcs, strict=False)
+    if "kernel" not in libs:
+        return 1
     print(smi("name,power.limit"))
     for name, (_, so, rep) in libs.items():
         print(f"{name}: {'; '.join(rep)}; SASS instructions "
               f"{json.dumps(sass_counts(so))}")
     lib0 = libs["kernel"][0]
+    for name, (lib, _, _) in libs.items():   # the pull's registers, blocks
+        for fn in ("epipolar_gather_backward_info",
+                   "epipolar_gather_backward_bf16_info"):
+            if name.startswith("probe_") or not hasattr(lib, fn):
+                continue
+            out = (ctypes.c_int * 12)()
+            getattr(lib, fn).argtypes = [ctypes.c_void_p]
+            if getattr(lib, fn)(out) == 0:
+                print(f"{name} {fn[25:]}: count / fill / pull registers "
+                      f"{out[0]} / {out[3]} / {out[6]}, spills {out[1]} / "
+                      f"{out[4]} / {out[7]} bytes, pull shared memory "
+                      f"{out[9]} bytes, {out[10]} blocks an SM")
     for lib, _, _ in libs.values():
         if hasattr(lib, "epipolar_gather_backward_scratch"):
             lib.epipolar_gather_backward_scratch.argtypes = [ctypes.c_int] * 4
             lib.epipolar_gather_backward_scratch.restype = ctypes.c_longlong
-    ms = {name: {case: [] for case in BWD_CASES} for name in libs}
-    zero = {}
-    order = list(libs)
+    lib0.epipolar_gather_backward_layout.argtypes = (
+        [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    runs = [(name, inst) for name, (lib, _, _) in libs.items()
+            for inst, (fn, _) in INSTANCES.items() if hasattr(lib, fn)]
+    ms = {f"{n} {i}": {case: [] for case in BWD_CASES} for n, i in runs}
+    zero, bad = {}, set()
     for case, (coords, P) in BWD_CASES.items():
         ins = bwd_inputs(dev, coords, P)
         shapes = ((V, H, W, 3), (V, H // 4, W // 4, C))
-        outs = [torch.empty(shapes[0], device=dev)] + [
-            torch.empty(shapes[1], device=dev) for _ in range(2)]
         # each build's own scratch (its sizes); the pull-only probe reads
         # the kernel's index
         scratch = {name: torch.empty(
             max(0, lib.epipolar_gather_backward_scratch(V, P, H // 4, W // 4))
             if hasattr(lib, "epipolar_gather_backward_scratch") else 0,
             dtype=torch.int32, device=dev) for name, (lib, _, _) in libs.items()}
-        scratch["probe_pull_only"] = scratch["kernel"]
-        want = epipolar_gather_backward_plain(*shapes, *ins)[1:]
-        bad = []
-        for name, (lib, _, _) in libs.items():
-            if name.startswith("probe_"):
-                continue
-            for o in outs:
-                o.zero_()   # the atomic design adds into them
-            bwd_launcher(lib, ins, outs, scratch[name])()
-            torch.cuda.synchronize()
-            if not all(torch.allclose(o, w, atol=BWD_ATOL, rtol=BWD_RTOL)
-                       for o, w in zip(outs[1:], want)):
-                bad.append(name)
-        print(f"{case}: builds not within atol {BWD_ATOL}, rtol {BWD_RTOL} "
-              f"of the plain version: {bad}")
-        if bad:
-            raise AssertionError(f"a build computes something else ({case})")
-        # the index the pull-only probe reads: the kernel's, built above
-        bwd_launcher(lib0, ins, outs, scratch["kernel"])()
-        for name in order + order[::-1]:     # in turns, then back
-            ms[name][case].append(cuda_ms(bwd_launcher(
-                libs[name][0], ins, outs, scratch[name])))
-        zero[case] = cuda_ms(lambda: [o.zero_() for o in outs[1:]])
-        if "stamps" in libs:
-            print_stamps(case, libs["stamps"][0], ins, outs, scratch["stamps"])
-        print(f"{case}: the kernel build's device events, us: "
-              + json.dumps(device_us(bwd_launcher(lib0, ins, outs,
-                                                  scratch["kernel"]))))
-        del ins, outs, scratch, want
+        if "probe_pull_only" in scratch:
+            scratch["probe_pull_only"] = scratch["kernel"]
+        for inst, (_, dtype) in INSTANCES.items():
+            outs = [torch.empty(shapes[0], device=dev)] + [
+                torch.empty(shapes[1], device=dev, dtype=dtype)
+                for _ in range(2)]
+            d_rgb = ins[2].to(dtype)
+            want = epipolar_gather_backward_plain(*shapes, ins[0], ins[1],
+                                                  d_rgb, ins[3], False,
+                                                  dtype)[1:]
+            scale = epipolar_gather_backward_plain(
+                *shapes, ins[0], ins[1], d_rgb.abs(), ins[3].abs(), False,
+                dtype)[1:]
+            for name, i in runs:
+                if i != inst or name.startswith("probe_"):
+                    continue
+                for o in outs:
+                    o.zero_()   # the atomic design adds into them
+                launch = bwd_launcher(libs[name][0], ins, outs,
+                                      scratch[name], inst)
+                launch()
+                again = [o.clone() for o in outs[1:]]
+                launch()
+                torch.cuda.synchronize()
+                if not (bwd_check(outs[1:], want, scale, inst)
+                        and (not hasattr(libs[name][0],
+                                         "epipolar_gather_backward_scratch")
+                             or all(torch.equal(a, o) for a, o in
+                                    zip(again, outs[1:])))):
+                    bad.add(f"{name} {inst}")
+            # the index the pull-only probe reads: the kernel's, built above
+            launch = bwd_launcher(lib0, ins, outs, scratch["kernel"], inst)
+            launch()
+            order = [n for n, i in runs if i == inst]
+            for name in order + order[::-1]:     # in turns, then back
+                ms[f"{name} {inst}"][case].append(cuda_ms(bwd_launcher(
+                    libs[name][0], ins, outs, scratch[name], inst)))
+            if "stamps" in libs and inst == "bfloat16":   # the pipelined pull
+                print_stamps(f"{case} {inst}", libs["stamps"][0], bwd_launcher(
+                    libs["stamps"][0], ins, outs, scratch["stamps"], inst))
+            print(f"{case} {inst}: the kernel build's device events, us: "
+                  + json.dumps(device_us(launch)))
+            for name in libs:   # the other sources' too
+                if name.startswith("against") and (name, inst) in runs:
+                    print(f"{case} {inst}: {name}'s device events, us: "
+                          + json.dumps(device_us(bwd_launcher(
+                              libs[name][0], ins, outs, scratch[name],
+                              inst))))
+            if inst == "bfloat16":
+                zero[case] = cuda_ms(lambda: [o.zero_() for o in outs[1:]])
+        # the kernel's index of this case, as its bfloat16 call (the last)
+        # left it
+        layout = (ctypes.c_longlong * 5)()
+        lib0.epipolar_gather_backward_layout(V, P, H // 4, W // 4, 1, layout)
+        at, n_at, tiles, chunk, split = layout
+        starts = scratch["kernel"][at:at + V * (tiles + 1)].view(V, tiles + 1)
+        lengths = starts[:, 1:] - starts[:, :-1]
+        longest = int(lengths.max())
+        print(f"{case}: {int(lengths.sum())} list entries, "
+              f"{int(((lengths + chunk - 1) // chunk).sum())} chunks; "
+              f"longest tile list {longest} entries, "
+              f"{-(-longest // chunk)} chunks of {chunk}, work items of at "
+              f"most {split} chunks a view: "
+              f"{scratch['kernel'][n_at:n_at + V].tolist()}")
+        del ins, scratch
+    print(f"builds not held to the plain version (float32 within atol "
+          f"{BWD_ATOL}, rtol {BWD_RTOL}; bfloat16 one ulp on 1e-3 of the "
+          f"values) or whose two launches differ: {sorted(bad)}")
     print(f"bare call ms (CUDA events, mean of 20, two turns), SM clock "
           f"after the run {smi('clocks.sm')}:")
-    for name in libs:
-        base = [sum(ms["kernel"][c]) / 2 for c in BWD_CASES]
-        mean = [sum(ms[name][c]) / 2 for c in BWD_CASES]
-        print(f"  {name:22s} " + "  ".join(
+    for key in ms:
+        inst = key.split()[-1]
+        base = [sum(ms[f"kernel {inst}"][c]) / 2 for c in BWD_CASES]
+        mean = [sum(ms[key][c]) / 2 for c in BWD_CASES]
+        print(f"  {key:26s} " + "  ".join(
             f"{c}: {m:.4f} ({100 * (m / b - 1):+.1f} %)"
             for c, m, b in zip(BWD_CASES, mean, base)))
-    print("  the two outputs' zero_  " + "  ".join(
+    print("  the bf16 outputs' zero_    " + "  ".join(
         f"{c}: {m:.4f}" for c, m in zero.items()))
-    print(json.dumps({"ms": ms, "zero_ms": zero}))
-    return 0
+    print(json.dumps({"ms": ms, "zero_ms": zero, "bad": sorted(bad)}))
+    return 1 if any(b.startswith("kernel ") for b in bad) else 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--against", metavar="FILE",
-                    help="another source of the same C interface, timed too")
+    ap.add_argument("--against", metavar="FILE", action="append",
+                    default=[], help="another source of the same C "
+                    "interface, timed too (repeatable)")
     ap.add_argument("--backward", action="store_true",
                     help="the backward's builds instead of the forward's")
+    ap.add_argument("--variants", metavar="A,B",
+                    help="with --backward: only these BACKWARD_VARIANTS")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("gather_variants: no CUDA device", file=sys.stderr)
@@ -438,16 +525,18 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     with open(SRC) as f:
         src = f.read()
+    against = []
+    for path in args.against:
+        with open(path) as f:
+            against.append(f.read())
     if args.backward:
-        against = None
-        if args.against:
-            with open(args.against) as f:
-                against = f.read()
-        return backward_main(src, against, dev)
+        only = args.variants.split(",") if args.variants else None
+        if only and set(only) - set(BACKWARD_VARIANTS):
+            ap.error(f"no such variants: {set(only) - set(BACKWARD_VARIANTS)}")
+        return backward_main(src, against, dev, only)
     srcs = {"kernel": src}
-    if args.against:
-        with open(args.against) as f:
-            srcs["against"] = f.read()
+    for k, text in enumerate(against):
+        srcs["against" + (f"_{k}" if k else "")] = text
     for name, subs in VARIANTS.items():
         srcs[name] = variant(src, subs)
     libs = compile_all(srcs)

@@ -10,19 +10,24 @@ from its source:
   1 computes them (float32, IEEE division), the tiles of kTileY x kTileX
   cells its taps reach, and each tile's list in the order of the stable
   counting sort (rounds of 32 consecutive points, then slot, then lane);
-- the pull: each tile's list in chunks of kChunk entries, each chunk sorted
-  stably by anchor cell in the tile's region (the tile and its top and left
-  halo), each cell's sum over the four anchor cells that can reach it,
-  (y-1,x-1), (y-1,x), (y,x-1), (y,x), each tap attributed by its computed
-  target, in `splat`'s order of multiplies, accumulated in float32;
+- the pull: each tile's list in chunks (the bfloat16 instance's pipelined
+  pull: chunks of kChunk entries, the list cut into ranges of at most
+  kSplit chunks, a work item each; the float32 instance's block-synchronous
+  pull: chunks of kSyncChunk, the whole list), each chunk sorted stably by
+  anchor cell in the tile's region (the tile and its top and left halo),
+  each cell's sum over the four anchor cells that can reach it, (y-1,x-1),
+  (y-1,x), (y,x-1), (y,x), each tap attributed by its computed target, in
+  `splat`'s order of multiplies, accumulated in float32 from 0 in each
+  range; the ranges' sums added in range order (0, 1, ...);
 - invalid points left out of the lists (their contribution g * 0 is zero),
   except that a non-finite upstream value at one makes the cells its taps
   reach NaN in that channel (the kernel flags the view and sets those
   NaNs; the model keeps such a point in its lists and sums its g * 0, which
   gives the same NaNs);
 - every cell written once (cells no tap reaches are 0).
-It runs at the kernel's chunk size and at a small one, so that long lists
-go through several chunks.
+It runs at the instance's chunk and split sizes, at a small chunk, and at a
+small chunk with ranges of one chunk, so that long lists go through
+several chunks and several ranges.
 
 Layouts (one shape, so JAX compiles once): random points; 40 points on one
 cell at a tile corner; a planner-like z-column of consecutive points along
@@ -76,7 +81,8 @@ def _const(name):
 
 
 TILE_Y, TILE_X = _const("kTileY"), _const("kTileX")
-CHUNK = _const("kChunk")
+CHUNK, SPLIT = _const("kChunk"), _const("kSplit")
+SYNC_CHUNK, WHOLE = _const("kSyncChunk"), 1 << 20   # float32: whole lists
 V, H, W, C, P = 2, 64, 96, 8, 333
 FH, FW = H // 4, W // 4
 F32 = np.float32
@@ -170,11 +176,16 @@ def pull_add_bf16(acc, g, a, p, kY, kX):
         acc += bf16(g * a["m"][p] * (rw * cw))
 
 
-def model_backward(xy, valid, d_rgb, d_ray, chunk=CHUNK, dtype="float32"):
-    """(d_img_feats, d_ray_feats) [V,FH,FW,C] as the kernel computes them;
-    dtype "bfloat16": as its bfloat16 instance does, rounded to bfloat16
-    (an invalid point with a non-finite upstream value makes its whole
-    window NaN in that channel)."""
+def model_backward(xy, valid, d_rgb, d_ray, chunk=None, dtype="float32",
+                   split=None):
+    """(d_img_feats, d_ray_feats) [V,FH,FW,C] as the kernel computes them,
+    a tile's list in ranges of `split` chunks of `chunk` entries (by
+    default the instance's own); dtype "bfloat16": as its bfloat16 instance
+    does, rounded to bfloat16 (an invalid point with a non-finite upstream
+    value makes its whole window NaN in that channel)."""
+    bf = dtype == "bfloat16"
+    chunk = chunk or (CHUNK if bf else SYNC_CHUNK)
+    split = split or (SPLIT if bf else WHOLE)
     add = pull_add_bf16 if dtype == "bfloat16" else pull_add
     out = np.full((2, V, FH, FW, C), np.nan, F32)
     for v in range(V):
@@ -184,28 +195,16 @@ def model_backward(xy, valid, d_rgb, d_ray, chunk=CHUNK, dtype="float32"):
         for ty in range(-(-FH // TILE_Y)):
             for tx in range(-(-FW // TILE_X)):
                 ty0, tx0 = ty * TILE_Y, tx * TILE_X
-                acc = np.zeros((2, TILE_Y, TILE_X, C), F32)
                 lst = lists.get((ty, tx), [])
-                for b in range(0, len(lst), chunk):
-                    ent = np.asarray(lst[b:b + chunk])
-                    key = ((a["y"][ent] - ty0 + 1) * (TILE_X + 1)
-                           + a["x"][ent] - tx0 + 1)
-                    assert ((0 <= key) & (key < (TILE_Y + 1) * (TILE_X + 1))
-                            ).all()
-                    seg = {}   # the chunk sorted stably by anchor key
-                    for k, p in zip(key, ent):
-                        seg.setdefault(int(k), []).append(int(p))
-                    for ly in range(TILE_Y):
-                        for lx in range(TILE_X):
-                            for s in range(4):
-                                kY, kX = int(s < 2), int(s % 2 == 0)
-                                k = (ly + s // 2) * (TILE_X + 1) + lx + s % 2
-                                for p in seg.get(k, ()):
-                                    for m in range(2):
-                                        add(acc[m, ly, lx], rows[m][p],
-                                            a, p, kY, kX)
+                step = chunk * split
+                total = None
+                for r0 in range(0, max(len(lst), 1), step):   # the ranges
+                    acc = np.zeros((2, TILE_Y, TILE_X, C), F32)
+                    _pull_range(acc, lst[r0:r0 + step], chunk, a, rows,
+                                ty0, tx0, add)
+                    total = acc if total is None else total + acc
                 hy, hx = min(TILE_Y, FH - ty0), min(TILE_X, FW - tx0)
-                out[:, v, ty0:ty0 + hy, tx0:tx0 + hx] = acc[:, :hy, :hx]
+                out[:, v, ty0:ty0 + hy, tx0:tx0 + hx] = total[:, :hy, :hx]
         if dtype == "bfloat16":   # the NaN path's windows
             for p in np.flatnonzero(a["m"] == 0):
                 y0, x0 = min(a["y"][p], FH - 2), min(a["x"][p], FW - 2)
@@ -216,6 +215,25 @@ def model_backward(xy, valid, d_rgb, d_ray, chunk=CHUNK, dtype="float32"):
     if dtype == "bfloat16":
         out = bf16(out)
     return out[0], out[1]
+
+
+def _pull_range(acc, lst, chunk, a, rows, ty0, tx0, add):
+    """One work item: its entries chunk by chunk into acc."""
+    for b in range(0, len(lst), chunk):
+        ent = np.asarray(lst[b:b + chunk])
+        key = (a["y"][ent] - ty0 + 1) * (TILE_X + 1) + a["x"][ent] - tx0 + 1
+        assert ((0 <= key) & (key < (TILE_Y + 1) * (TILE_X + 1))).all()
+        seg = {}   # the chunk sorted stably by anchor key
+        for k, p in zip(key, ent):
+            seg.setdefault(int(k), []).append(int(p))
+        for ly in range(TILE_Y):
+            for lx in range(TILE_X):
+                for s in range(4):
+                    kY, kX = int(s < 2), int(s % 2 == 0)
+                    k = (ly + s // 2) * (TILE_X + 1) + lx + s % 2
+                    for p in seg.get(k, ()):
+                        for m in range(2):
+                            add(acc[m, ly, lx], rows[m][p], a, p, kY, kX)
 
 
 # ------------------------------------------------------------ the layouts
@@ -296,11 +314,32 @@ def assert_bf16_equal(got, want, scale, what="", ulps=1):
     assert differ.mean() <= BF16_ULP_SHARE, (what, differ.mean())
 
 
-@pytest.mark.parametrize("name", LAYOUTS)
-def test_pull_model_matches_plain_and_jax_vjp(name, jax_vjp):
-    """The kernel's algorithm (the model, at the kernel's chunk and at a
-    chunk of 16) against the plain backward and JAX's VJP, 1e-5; the lists
-    hold every (point, tile) pair its taps make, once."""
+# (layout, split): the instance's own split (the layout's name alone), and
+# ranges of one chunk of 16
+SPLITS = ([(n, None) for n in LAYOUTS] + [(n, 1) for n in LAYOUTS])
+SPLIT_IDS = [*LAYOUTS, *(f"{n}-S1" for n in LAYOUTS)]
+
+
+def _chunks(split, chunk, own):
+    """(chunk, split) pairs a model test runs: the instance's chunk and
+    split `own`, and a chunk of 16 with it (split None); or ranges of
+    `split` chunks of 16."""
+    return ((chunk, own), (16, own)) if split is None else ((16, split),)
+
+
+def _assert_ranges(name, xy, valid, split):
+    """At one chunk of 16 a range, one_cell's longest list spans several."""
+    if name == "one_cell" and split == 1:
+        lists = tile_lists(anchors(xy[0], valid[0]))
+        assert max(len(lst) for lst in lists.values()) > 2 * 16
+
+
+@pytest.mark.parametrize("name,split", SPLITS, ids=SPLIT_IDS)
+def test_pull_model_matches_plain_and_jax_vjp(name, split, jax_vjp):
+    """The float32 instance's algorithm (the model, at its chunk, whole
+    lists, and at a chunk of 16, or at ranges of one chunk of 16) against
+    the plain backward and JAX's VJP, 1e-5; the lists hold every (point,
+    tile) pair its taps make, once."""
     rng = np.random.RandomState(LAYOUTS.index(name))
     xy, valid = layout(name, rng)
     d_rgb = rng.randn(V, P, 3 + C).astype(F32)
@@ -314,8 +353,9 @@ def test_pull_model_matches_plain_and_jax_vjp(name, jax_vjp):
     want = jax_vjp(maps, jnp.asarray(xy), jnp.asarray(valid),
                    (jnp.asarray(d_rgb[..., :3]), jnp.asarray(d_rgb[..., 3:]),
                     jnp.asarray(d_ray)))[1:]
-    for chunk in (CHUNK, 16):
-        got = model_backward(xy, valid, d_rgb, d_ray, chunk)
+    _assert_ranges(name, xy, valid, split)
+    for chunk, s in _chunks(split, SYNC_CHUNK, WHOLE):
+        got = model_backward(xy, valid, d_rgb, d_ray, chunk, split=s)
         for g, p, w, a in zip(got, plain, want, scale):
             np.testing.assert_allclose(g, p.numpy(), atol=1e-5, rtol=0)
             assert (np.abs(g - np.asarray(w)) <= 1e-5 + 1e-5 * a.numpy()).all()
@@ -375,10 +415,12 @@ def _want_bf16(jax_vjp_bf16, xy, valid, d_rgb, d_ray, h=H, w=W, c=C):
          jnp.asarray(d_ray)))]
 
 
-@pytest.mark.parametrize("name", LAYOUTS)
-def test_pull_model_bf16_matches_plain_and_jax_vjp(name, jax_vjp_bf16):
-    """The bfloat16 instance's algorithm (the model, at the kernel's chunk
-    and at a chunk of 16), the plain bfloat16 backward and JAX's VJP on
+@pytest.mark.parametrize("name,split", SPLITS, ids=SPLIT_IDS)
+def test_pull_model_bf16_matches_plain_and_jax_vjp(name, split,
+                                                    jax_vjp_bf16):
+    """The bfloat16 instance's algorithm (the model, at its chunk and split
+    and at a chunk of 16, or at ranges of one chunk of 16), the plain
+    bfloat16 backward and JAX's VJP on
     bfloat16-packed maps agree bit for bit (or one bfloat16 ulp where a
     float32 sum runs in another order); the plain version's image
     gradient (8-slot full-res weights) too."""
@@ -392,11 +434,13 @@ def test_pull_model_bf16_matches_plain_and_jax_vjp(name, jax_vjp_bf16):
     for p, w, a, what in zip(plain, want, scale,
                              ("imgs", "img_feats", "ray_feats")):
         assert_bf16_equal(p, w, a, f"plain {what}", JAX_ULPS)
-    for chunk in (CHUNK, 16):
-        got = model_backward(xy, valid, d_rgb, d_ray, chunk, "bfloat16")
+    _assert_ranges(name, xy, valid, split)
+    for chunk, s in _chunks(split, CHUNK, SPLIT):
+        got = model_backward(xy, valid, d_rgb, d_ray, chunk, "bfloat16", s)
         for g, p, a, what in zip(got, plain[1:], scale[1:],
                                  ("img_feats", "ray_feats")):
-            assert_bf16_equal(g, p, a, f"model {what} chunk {chunk}")
+            assert_bf16_equal(g, p, a, f"model {what} chunk {chunk} "
+                              f"split {s}")
 
 
 def test_pull_model_bf16_non_finite_upstream_like_plain(jax_vjp_bf16):
