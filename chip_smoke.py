@@ -240,8 +240,9 @@ BWD_ATOL, BWD_RTOL, BWD_SUM_RTOL = 5e-4, 1e-5, 1e-4
 BWD_BF16_SHARE = 1e-3
 # - the gather's gradient with respect to xy (B'-xy) vs its plain version
 #   on the card, both instances: the same taps and weights (IEEE division
-#   on both sides) and tap differences, but each point's sum over its
-#   2 C + 3 channels runs in another order (the warp's shuffle tree against
+#   on both sides) and tap differences, but the kernel contracts each
+#   product into its sum (FMA) and each point's sum over its 2 C + 3
+#   channels runs in another order (the warp's shuffle tree against
 #   PyTorch's reductions), so max |kernel - plain| <= XY_RTOL x the largest
 #   |d_xy|; along an axis clamped at the border exactly 0; NaN exactly where
 #   the plain version has it.

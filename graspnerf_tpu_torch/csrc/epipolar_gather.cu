@@ -2134,66 +2134,150 @@ extern "C" int epipolar_gather_backward_bf16_info(int* out) {
 // VJP applies them: 0.5 * fw and 0.5 * (W-1) into d(xn), then 2 / (w-1).
 // Everything is times the mask: a non-finite upstream value at an invalid
 // point gives NaN, as JAX's g * 0 does.
-// Design: kLanes (8) lanes per point, four points a warp, as the forward's
-// phase 2: a lane owns four channels of both maps (float4 reads of the four
-// taps of each, 8 bytes in bfloat16) and the point's d_ray_feats row (one
-// float4); lanes 0-2 also one colour channel of the image. Each lane
-// computes the point's taps and weights (`make_point`'s, so the forward's
-// to the bit); its partial sums meet in a shuffle reduction over the
-// point's lanes. Maps or d_ray_feats that are not 16-byte aligned, or
-// C % 4 != 0, take float reads.
-// Bound: bytes (the upstream rows; the maps' taps stay in L2).
+// Bound: bytes (the upstream rows read once). The maps' taps stay in L2,
+// but on random coordinates they are ~1 KB a point in float32 (512 bytes in
+// bfloat16), as the forward reads them: with the upstream, about 500 MB
+// cross from L2 into the SMs at P = 64,000, which is what the float32
+// instance's time is near.
+// Design: the forward's three phases, transposed. A block takes kXyPoints
+// consecutive points of one view (the view on blockIdx.y).
+//   1. The block's d_rgb_feats rows (3 + C elements each, not 16-byte
+//      aligned) are one contiguous slab of the upstream: its threads start
+//      16-byte cp.async copies of the blocks that enclose it into shared
+//      memory, the slab at its own offset from a 16-byte boundary (the
+//      forward's phase 3 run backwards). Meanwhile one thread a point
+//      computes its quarter-res taps and weights into shared memory, and
+//      another its full-res ones (`make_point`'s arithmetic, so the
+//      forward's to the bit).
+//   2. L lanes a point (`kXyLanes`: 8 in float32, 4 in bfloat16), each
+//      taking kXyRounds points in turn and owning kMaxC / L channels of both
+//      maps: a 16-byte read of each of the four taps of each map (four
+//      float32 or eight bfloat16 channels) and of the point's d_ray_feats
+//      row; its d_rgb_feats channels from shared memory. At 8 lanes, lanes
+//      0-5 read the image's two tap rows (x0, x1) x 3 colours and lane
+//      c < 3 takes the x1 column from lane c + 3 by shuffle once the maps'
+//      taps are summed, as the forward's phase 2 reads them; at 4, lanes
+//      0-2 read the four taps of their colour. A lane's partial sums meet
+//      in a shuffle reduction over the point's lanes; lanes 0 and 1 divide
+//      and store d_x and d_y.
+// Measured (tools/gather_variants.py --xy): the time is L2 traffic plus
+// instructions; bfloat16 at 4 lanes issues half the lanes' address and
+// index arithmetic, while float32 at 4 lanes (72 registers) ran slower on
+// random coordinates.
+// Arithmetic: the taps, weights and tap differences are the plain
+// version's; each product that meets a sum is an FMA (an explicit fmaf: the
+// library is built with -fmad=false), and each point's sum over its 2 C + 3
+// channels runs in the lanes' order, not PyTorch's. Maps or d_ray_feats
+// that are not aligned for the lanes' reads, or C % (kMaxC / L) != 0, take
+// float reads (the staged slab does not need alignment).
 // bfloat16 instance: the maps and d_rgb_feats in bfloat16, widened exactly
 // to float32 (JAX promotes the window before the weighted sum), d_ray_feats
 // float32; all arithmetic float32.
 namespace {
 
-constexpr int kXyWarps = 8;                        // warps a block
-constexpr int kXyPoints = kXyWarps * 32 / kLanes;  // points a block
+constexpr int kXyPoints = 32;                 // points of one view a block
+constexpr int kXyThreads = 2 * kXyPoints;     // phase 1: a thread a map
+// lanes a point, float32 and bfloat16 maps
+constexpr int kXyLanesF32 = 8, kXyLanesBF16 = 4;
+
+template <typename T>
+constexpr int kXyLanes = sizeof(T) == 4 ? kXyLanesF32 : kXyLanesBF16;
+
+// K consecutive elements as float, from 16-byte reads (8-byte reads of
+// four bfloat16)
+template <int K>
+__device__ __forceinline__ void load_k(const float* p, float* v) {
+#pragma unroll
+  for (int j = 0; j < K; j += 4) {
+    const float4 u = ld4(p + j);
+    v[j] = u.x;
+    v[j + 1] = u.y;
+    v[j + 2] = u.z;
+    v[j + 3] = u.w;
+  }
+}
+template <int K>
+__device__ __forceinline__ void load_k(const bf16* p, float* v) {
+  if constexpr (K % 8 == 0) {
+#pragma unroll
+    for (int j = 0; j < K; j += 8) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p + j));
+      const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        v[j + 2 * h] = __uint_as_float(w[h] << 16);
+        v[j + 2 * h + 1] = __uint_as_float(w[h] & 0xffff0000u);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; j += 4) {
+      const float4 u = load4(p + j);
+      v[j] = u.x;
+      v[j + 1] = u.y;
+      v[j + 2] = u.z;
+      v[j + 3] = u.w;
+    }
+  }
+}
 
 // d(sample)/d(px) and d(sample)/d(py) of one channel from its four taps
 __device__ __forceinline__ float2 slopes(float v00, float v01, float v10,
                                          float v11, const Point& q) {
-  return make_float2((v01 - v00) * q.owy + (v11 - v10) * q.wy,
-                     (v10 - v00) * q.owx + (v11 - v01) * q.wx);
+  return make_float2(fmaf(v11 - v10, q.wy, (v01 - v00) * q.owy),
+                     fmaf(v11 - v01, q.wx, (v10 - v00) * q.owx));
 }
 
-// g . slopes of channels c.. of `map` at q's taps, added into acc (x, y)
-template <bool kVec, typename T>
+// g . slopes of K channels c.. of `map` at q's taps (n of them on the
+// element path), added into acc (x, y)
+template <bool kVec, int K, typename T>
 __device__ __forceinline__ void add_slopes(const T* __restrict__ map,
                                            const Point& q, int c, int n,
                                            const float* g, float2& acc) {
   const T* t = map + q.o00 + c;
   if (kVec) {
-    const float4 a = load4(t), b = load4(t + q.dx), d = load4(t + q.dy),
-                 e = load4(t + q.dy + q.dx);
-    const float2 s0 = slopes(a.x, b.x, d.x, e.x, q);
-    const float2 s1 = slopes(a.y, b.y, d.y, e.y, q);
-    const float2 s2 = slopes(a.z, b.z, d.z, e.z, q);
-    const float2 s3 = slopes(a.w, b.w, d.w, e.w, q);
-    acc.x += g[0] * s0.x + g[1] * s1.x + g[2] * s2.x + g[3] * s3.x;
-    acc.y += g[0] * s0.y + g[1] * s1.y + g[2] * s2.y + g[3] * s3.y;
+    float a[K], b[K], d[K], e[K];
+    load_k<K>(t, a);
+    load_k<K>(t + q.dx, b);
+    load_k<K>(t + q.dy, d);
+    load_k<K>(t + q.dy + q.dx, e);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const float2 s = slopes(a[j], b[j], d[j], e[j], q);
+      acc.x = fmaf(g[j], s.x, acc.x);
+      acc.y = fmaf(g[j], s.y, acc.y);
+    }
   } else {
     for (int j = 0; j < n; ++j) {
-      const float2 sj = slopes(
+      const float2 s = slopes(
           to_f(__ldg(t + j)), to_f(__ldg(t + q.dx + j)),
           to_f(__ldg(t + q.dy + j)), to_f(__ldg(t + q.dy + q.dx + j)), q);
-      acc.x += g[j] * sj.x;
-      acc.y += g[j] * sj.y;
+      acc.x = fmaf(g[j], s.x, acc.x);
+      acc.y = fmaf(g[j], s.y, acc.y);
     }
   }
 }
 
 template <bool kVec, typename T>
-__global__ void __launch_bounds__(32 * kXyWarps)
+__global__ void __launch_bounds__(kXyThreads)
 xy_grad_kernel(const T* __restrict__ imgs, const T* __restrict__ img_feats,
                const T* __restrict__ ray_feats, const float* __restrict__ xy,
                const unsigned char* __restrict__ valid,
                const T* __restrict__ d_rgb, const float* __restrict__ d_ray,
                float* __restrict__ d_xy, int P, int H, int W, int fh, int fw,
                int C) {
-  const int l = threadIdx.x % kLanes, c = 4 * l;
-  const int p = blockIdx.x * kXyPoints + threadIdx.x / kLanes;
+  constexpr int E = 16 / sizeof(T);   // elements per 16 bytes
+  constexpr int L = kXyLanes<T>, K = kMaxC / L;   // lanes, their channels
+  constexpr int kXyRounds = kXyPoints * L / kXyThreads;   // a lane's points
+  constexpr bool kRows = L == 8;   // the image's tap rows by lanes 0-5
+  static_assert(kXyPoints % 8 == 0 && kXyThreads % 32 == 0 &&
+                    kXyPoints * L % kXyThreads == 0 && K % 4 == 0,
+                "xy block shape");
+  __shared__ Point pts[kXyPoints], rgbs[kXyPoints];
+  __shared__ __align__(16) T slab[kXyPoints * kMaxRow + E];
+  const int R = 3 + C;
+  const int p0 = blockIdx.x * kXyPoints;
+  const int n = min(kXyPoints, P - p0);
   {   // this block's view
     const size_t v = blockIdx.y, vp = v * P;
     const size_t map = v * fh * fw * C;
@@ -2202,51 +2286,107 @@ xy_grad_kernel(const T* __restrict__ imgs, const T* __restrict__ img_feats,
     ray_feats += map;
     xy += 2 * vp;
     valid += vp;
-    d_rgb += vp * (3 + C);
+    d_rgb += vp * R;
     d_ray += vp * C;
     d_xy += 2 * vp;
   }
-  float2 q_acc = make_float2(0.0f, 0.0f), f_acc = q_acc;
-  if (p < P) {   // the same for all lanes of the point
-    const float m = valid[p] ? 1.0f : 0.0f;
-    const float2 n = normalised(xy, p, H, W);
-    if (c < C) {   // the feature maps: the masked upstream, then slopes
-      const int k = min(4, C - c);
-      float gi[4], gr[4];
-      const T* up = d_rgb + p * (3 + C) + 3 + c;
-      for (int j = 0; j < 4; ++j) gi[j] = j < k ? to_f(up[j]) * m : 0.0f;
-      if (kVec) {
-        const float4 r = ld4(d_ray + p * C + c);
-        gr[0] = r.x * m;
-        gr[1] = r.y * m;
-        gr[2] = r.z * m;
-        gr[3] = r.w * m;
-      } else {
-        for (int j = 0; j < 4; ++j)
-          gr[j] = j < k ? d_ray[p * C + c + j] * m : 0.0f;
-      }
-      const Point q = quarter_point(n, fh, fw, C, m);
-      add_slopes<kVec>(img_feats, q, c, k, gi, q_acc);
-      add_slopes<kVec>(ray_feats, q, c, k, gr, q_acc);
-    }
-    if (l < 3) {   // the image: one colour channel a lane
-      const float g = to_f(d_rgb[p * (3 + C) + l]) * m;
-      add_slopes<false>(imgs, full_point(n, H, W, m), l, 1, &g, f_acc);
+  const T* rows = d_rgb + p0 * R;   // the block's d_rgb rows, n * R elements
+  // slab[a + k] holds rows[k]: the same offset from 16 bytes
+  const int a =
+      static_cast<int>(reinterpret_cast<uintptr_t>(rows) / sizeof(T) % E);
+  const int t = threadIdx.x;
+
+  // 1. the slab's 16-byte blocks in flight; per point, once: the taps
+  {
+    const char* from = reinterpret_cast<const char*>(rows - a);
+    const int blocks = (a + n * R + E - 1) / E;
+    for (int s = t; s < blocks; s += kXyThreads)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       smem_addr(slab + E * s)),
+                   "l"(from + 16 * s)
+                   : "memory");
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  for (int j = t; j < 2 * kXyPoints; j += kXyThreads) {
+    const int i = j % kXyPoints;
+    if (i < n) {
+      const float m = valid[p0 + i] ? 1.0f : 0.0f;
+      const float2 nxy = normalised(xy, p0 + i, H, W);
+      if (j < kXyPoints)
+        pts[i] = quarter_point(nxy, fh, fw, C, m);
+      else
+        rgbs[i] = full_point(nxy, H, W, m);
     }
   }
-  // into d(xn), d(yn): the quarter-res maps' and the image's chain factors
-  float dx = q_acc.x * (0.5f * static_cast<float>(fw)) +
-             f_acc.x * (0.5f * static_cast<float>(W - 1));
-  float dy = q_acc.y * (0.5f * static_cast<float>(fh)) +
-             f_acc.y * (0.5f * static_cast<float>(H - 1));
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+
+  // 2. L lanes a point: the slopes, contracted with the upstream
+  const int l = threadIdx.x % L, c = K * l;
+  const float qx = 0.5f * static_cast<float>(fw);      // chain factors
+  const float qy = 0.5f * static_cast<float>(fh);
+  const float fx = 0.5f * static_cast<float>(W - 1);
+  const float fy = 0.5f * static_cast<float>(H - 1);
 #pragma unroll
-  for (int o = kLanes / 2; o > 0; o /= 2) {
-    dx += __shfl_xor_sync(0xffffffffu, dx, o, kLanes);
-    dy += __shfl_xor_sync(0xffffffffu, dy, o, kLanes);
-  }
-  if (l == 0 && p < P) {
-    d_xy[2 * p] = dx * 2.0f / static_cast<float>(W - 1);
-    d_xy[2 * p + 1] = dy * 2.0f / static_cast<float>(H - 1);
+  for (int r = 0; r < kXyRounds; ++r) {
+    const int i = t / L + r * (kXyThreads / L);
+    const bool live = i < n;   // the same for all lanes of the point
+    const T* up = slab + a + i * R;   // the point's d_rgb_feats row
+    Point f;   // the full-res taps
+    float r0 = 0.0f, r1 = 0.0f, r2 = 0.0f, r3 = 0.0f;   // the image's
+    if (live) {
+      f = rgbs[i];
+      if (kRows ? l < 6 : l < 3) {   // rows y0, y1 at (x0 | x1, colour)
+        const T* tap = imgs + f.o00 + (kRows ? l % 3 + l / 3 * f.dx : l);
+        r0 = to_f(__ldg(tap));
+        r1 = to_f(__ldg(tap + f.dy));
+        if (!kRows) {   // and at x1
+          r2 = to_f(__ldg(tap + f.dx));
+          r3 = to_f(__ldg(tap + f.dy + f.dx));
+        }
+      }
+    }
+    float2 q_acc = make_float2(0.0f, 0.0f), f_acc = q_acc;
+    if (live) {
+      const Point q = pts[i];
+      if (c < C) {   // the feature maps: the masked upstream, then slopes
+        const int k = kVec ? K : min(K, C - c);   // kVec: C % K == 0
+        float gi[K], gr[K];
+        for (int j = 0; j < K; ++j)
+          gi[j] = j < k ? to_f(up[3 + c + j]) * q.m : 0.0f;
+        const float* ray = d_ray + (p0 + i) * C + c;
+        if (kVec) {
+          load_k<K>(ray, gr);
+#pragma unroll
+          for (int j = 0; j < K; ++j) gr[j] *= q.m;
+        } else {
+          for (int j = 0; j < K; ++j) gr[j] = j < k ? ray[j] * q.m : 0.0f;
+        }
+        add_slopes<kVec, K>(img_feats, q, c, k, gi, q_acc);
+        add_slopes<kVec, K>(ray_feats, q, c, k, gr, q_acc);
+      }
+    }
+    if (kRows) {   // the x1 column from lane l + 3, landed meanwhile
+      r2 = __shfl_down_sync(0xffffffffu, r0, 3, L);
+      r3 = __shfl_down_sync(0xffffffffu, r1, 3, L);
+    }
+    if (live && l < 3) {   // the image: colour l
+      const float gc = to_f(up[l]) * f.m;
+      const float2 s = slopes(r0, r2, r1, r3, f);
+      f_acc.x = fmaf(gc, s.x, f_acc.x);
+      f_acc.y = fmaf(gc, s.y, f_acc.y);
+    }
+    // into d(xn), d(yn): the quarter-res maps' and the image's chain factors
+    float dx = q_acc.x * qx + f_acc.x * fx;
+    float dy = q_acc.y * qy + f_acc.y * fy;
+#pragma unroll
+    for (int o = L / 2; o > 0; o /= 2) {
+      dx += __shfl_xor_sync(0xffffffffu, dx, o, L);
+      dy += __shfl_xor_sync(0xffffffffu, dy, o, L);
+    }
+    if (l < 2 && live)   // lane 0 d_x, lane 1 d_y: one division for both
+      d_xy[2 * (p0 + i) + l] =
+          (l ? dy : dx) * 2.0f / static_cast<float>(l ? H - 1 : W - 1);
   }
 }
 
@@ -2256,16 +2396,17 @@ int backward_xy(const T* imgs, const T* img_feats, const T* ray_feats,
                 const float* d_ray, float* d_xy, int V, int P, int H, int W,
                 int fh, int fw, int C, cudaStream_t stream) {
   if (V == 0 || P == 0) return 0;
-  if (C > 4 * kLanes) return static_cast<int>(cudaErrorInvalidValue);
+  if (C > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((P + kXyPoints - 1) / kXyPoints, V);
-  // vector reads of four channels
-  const size_t v4 = 4 * sizeof(T);
-  const bool vec = C % 4 == 0 && aligned(img_feats, v4) &&
-                   aligned(ray_feats, v4) && aligned(d_ray, 16);
+  // vector reads of a lane's K channels: 16 bytes (8: four bfloat16) each
+  constexpr int K = kMaxC / kXyLanes<T>;
+  const size_t vb = K * sizeof(T) < 16 ? K * sizeof(T) : 16;
+  const bool vec = C % K == 0 && aligned(img_feats, vb) &&
+                   aligned(ray_feats, vb) && aligned(d_ray, 16);
   const auto kernel = vec ? xy_grad_kernel<true, T> : xy_grad_kernel<false, T>;
-  kernel<<<grid, 32 * kXyWarps, 0, stream>>>(imgs, img_feats, ray_feats, xy,
-                                             valid, d_rgb, d_ray, d_xy, P, H,
-                                             W, fh, fw, C);
+  kernel<<<grid, kXyThreads, 0, stream>>>(imgs, img_feats, ray_feats, xy,
+                                          valid, d_rgb, d_ray, d_xy, P, H, W,
+                                          fh, fw, C);
   return static_cast<int>(cudaGetLastError());
 }
 

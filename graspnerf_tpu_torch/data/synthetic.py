@@ -249,7 +249,8 @@ class SyntheticSceneDataset:
             fuse_exts.append(ext @ shift)
             fuse_Ks.append(self.K)
         tsdf, wgt = integrate_tsdf(np.stack(fuse_depths), np.stack(fuse_Ks),
-                                   np.stack(fuse_exts), VOLUME_SIZE, self.res)
+                                   np.stack(fuse_exts), VOLUME_SIZE, self.res,
+                                   device="cpu")
         tsdf = np.where(wgt.numpy() > 0, tsdf.numpy(), -1.0).astype(np.float32)
 
         grasp_index, label, rot, width = self._grasp_labels(tsdf, rng)

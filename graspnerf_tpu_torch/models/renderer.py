@@ -36,6 +36,7 @@ from typing import Dict, Mapping, Optional
 import torch
 import torch.nn as nn
 
+from ..device import resolve_device
 from ..ops import geometry
 from ..ops.epipolar_gather import epipolar_gather, epipolar_gather_plain
 from ..ops.interpolate import interpolate_feats, interpolate_feature_map
@@ -92,17 +93,6 @@ def draw_pixels(count: int, n: int, generator: torch.Generator,
     apart so that a test can hand in another library's."""
     return torch.randperm(count, generator=generator,
                           device=generator.device)[:n].to(device)
-
-
-def resolve_device(device) -> torch.device:
-    """`None` means the card. Without one this raises: the port never falls
-    back to the CPU on its own; pass device="cpu" for that."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
-                               "the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 class NeuralRayRenderer(nn.Module):

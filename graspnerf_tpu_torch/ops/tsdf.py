@@ -3,12 +3,15 @@
 The fusion is the classical projective TSDF: per view, each voxel centre is
 projected to its nearest pixel, its signed distance to the observed depth is
 truncated at four voxels, and observed voxels average their truncated values
-with weight 1 (what Open3D's UniformTSDFVolume computes). The data pipeline
-runs it on the CPU; `device` lets a caller run it on the card.
+with weight 1 (what Open3D's UniformTSDFVolume computes). It runs on the
+card unless `device` says otherwise; the data pipeline's workers pass
+device="cpu".
 """
 from __future__ import annotations
 
 import torch
+
+from ..device import resolve_device
 
 RESOLUTION = 40
 VOLUME_SIZE = 0.3
@@ -25,15 +28,18 @@ def grid_points(resolution: int = RESOLUTION, volume_size: float = VOLUME_SIZE,
 
 
 def integrate_tsdf(depth_imgs, Ks, extrinsics, size: float = VOLUME_SIZE,
-                   resolution: int = RESOLUTION, device="cpu"):
+                   resolution: int = RESOLUTION, device=None):
     """Fuse depth images into a TSDF volume.
 
     depth_imgs [n,h,w] metric depth (0 = no return), Ks [n,3,3], extrinsics
     [n,4,4] world(volume-local)->camera transforms; numpy arrays or tensors.
-    Returns float32 tensors on `device`: tsdf [res,res,res] in [-1,1] (1 =
+    Returns float32 tensors on `device` (None: the card, raising without
+    one; `device.resolve_device`): tsdf [res,res,res] in [-1,1] (1 =
     free space at or beyond the truncation, 0 = surface) and weights
     [res,res,res]; unobserved voxels have weight 0.
     """
+    device = resolve_device(device)
+
     def t(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
     depth_imgs, Ks, extrinsics = t(depth_imgs), t(Ks), t(extrinsics)

@@ -35,11 +35,24 @@ planner's coordinates at P = 64,000 and on a training batch's coarse-pass
 coordinates at P = 20,480, beside one `zero_` of the two bfloat16 outputs
 (what the atomic design's wrapper adds); the longest tile list and the
 work items are read from the index, and the build's own call is broken
-down by device event (torch.profiler). Run from the repository root on a
-machine with a CUDA card:
+down by device event (torch.profiler).
+
+With `--xy`, the same for the gradient with respect to xy
+(`epipolar_gather_backward_xy` and its bfloat16 instance): the build as it
+is, each entry of XY_VARIANTS (a step of its design undone, and probes
+without map reads or upstream reads), and with `--against FILE` that
+source and each entry of XY_PARENT_PROBES that applies to it (the same
+probes written for PR 14's kernel). Each build's registers, spills and
+shared memory (its `epipolar_gather_backward_xy_info`); every build but
+the probes held to the plain version within chip_smoke.py's XY_RTOL of
+the largest |d_xy|, and to the kernel build bit for bit (printed, not a
+failure); bare launches on random, the planner's and border-clamped
+coordinates at P = 64,000, beside the forward (B and B-bf16) of the
+kernel build on the same inputs, the yardstick that reads the same taps.
+Run from the repository root on a machine with a CUDA card:
 
     python3 -m graspnerf_tpu_torch.tools.gather_variants [--backward
-        [--variants A,B]] [--against FILE ...]
+        [--variants A,B] | --xy] [--against FILE ...]
 """
 from __future__ import annotations
 
@@ -509,6 +522,391 @@ def backward_main(src, against, dev, only=None) -> int:
     return 1 if any(b.startswith("kernel ") for b in bad) else 0
 
 
+def xy_points(n):
+    return [["constexpr int kXyPoints = 32;", f"constexpr int kXyPoints = {n};"]]
+
+
+def xy_min_blocks(n):
+    return [["__launch_bounds__(kXyThreads)\nxy_grad_kernel",
+             f"__launch_bounds__(kXyThreads, {n})\nxy_grad_kernel"]]
+
+
+def xy_lanes(f32, bf16):
+    return [["constexpr int kXyLanesF32 = 8, kXyLanesBF16 = 4;",
+             f"constexpr int kXyLanesF32 = {f32}, kXyLanesBF16 = {bf16};"]]
+
+
+# The element path's taps (the same text in PR 14's source) and the image's
+_ELEMENT_TAPS = [
+    "          to_f(__ldg(t + j)), to_f(__ldg(t + q.dx + j)),\n"
+    "          to_f(__ldg(t + q.dy + j)), to_f(__ldg(t + q.dy + q.dx + j)), q);",
+    "          q.wx + j, q.wy, q.owx, q.owy, q);"]
+_NO_MAPS = [
+    ["    load_k<K>(t, a);\n    load_k<K>(t + q.dx, b);\n"
+     "    load_k<K>(t + q.dy, d);\n    load_k<K>(t + q.dy + q.dx, e);",
+     "    for (int j = 0; j < K; ++j) {\n      a[j] = q.wx + j;\n"
+     "      b[j] = q.wy;\n      d[j] = q.owx;\n      e[j] = q.owy;\n    }"],
+    _ELEMENT_TAPS,
+    ["        r0 = to_f(__ldg(tap));\n        r1 = to_f(__ldg(tap + f.dy));",
+     "        r0 = f.wx;\n        r1 = f.wy;"],
+    ["          r2 = to_f(__ldg(tap + f.dx));\n"
+     "          r3 = to_f(__ldg(tap + f.dy + f.dx));",
+     "          r2 = f.owx;\n          r3 = f.owy;"]]
+_NO_SLAB = ["    for (int s = t; s < blocks; s += kXyThreads)\n",
+            "    for (int s = blocks; s < blocks; s += kXyThreads)\n"]
+_NO_UPSTREAM = [_NO_SLAB, [
+    "          load_k<K>(ray, gr);",
+    "          for (int j = 0; j < K; ++j) gr[j] = 1.0f;"]]
+_TAPS_PER_LANE = [
+    ["      f = rgbs[i];",
+     "      f = full_point(normalised(xy, p0 + i, H, W), H, W,\n"
+     "                     valid[p0 + i] ? 1.0f : 0.0f);"],
+    ["      const Point q = pts[i];",
+     "      const Point q = quarter_point(normalised(xy, p0 + i, H, W), fh,\n"
+     "                                    fw, C, valid[p0 + i] ? 1.0f : 0.0f);"],
+    ["  for (int j = t; j < 2 * kXyPoints; j += kXyThreads) {",
+     "  for (int j = 2 * kXyPoints; j < 2 * kXyPoints; j += kXyThreads) {"]]
+_UPSTREAM_DIRECT = [
+    ["    const T* up = slab + a + i * R;", "    const T* up = rows + i * R;"],
+    _NO_SLAB]
+_IMAGE_TAPS = [["  constexpr bool kRows = L == 8;", "  constexpr bool kRows = false;"]]
+_SHUFFLE = ("    if (kRows) {   // the x1 column from lane l + 3, landed meanwhile\n"
+            "      r2 = __shfl_down_sync(0xffffffffu, r0, 3, L);\n"
+            "      r3 = __shfl_down_sync(0xffffffffu, r1, 3, L);\n"
+            "    }\n")
+_ACC = "    float2 q_acc = make_float2(0.0f, 0.0f), f_acc = q_acc;\n"
+_NO_FMA = [   # the products rounded before each sum, in PR 14's order
+    ["  return make_float2(fmaf(v11 - v10, q.wy, (v01 - v00) * q.owy),\n"
+     "                     fmaf(v11 - v01, q.wx, (v10 - v00) * q.owx));",
+     "  return make_float2((v01 - v00) * q.owy + (v11 - v10) * q.wy,\n"
+     "                     (v10 - v00) * q.owx + (v11 - v01) * q.wx);"],
+    ["#pragma unroll\n    for (int j = 0; j < K; ++j) {\n"
+     "      const float2 s = slopes(a[j], b[j], d[j], e[j], q);\n"
+     "      acc.x = fmaf(g[j], s.x, acc.x);\n"
+     "      acc.y = fmaf(g[j], s.y, acc.y);\n    }",
+     "    float2 sum = make_float2(0.0f, 0.0f);\n"
+     "#pragma unroll\n    for (int j = 0; j < K; ++j) {\n"
+     "      const float2 s = slopes(a[j], b[j], d[j], e[j], q);\n"
+     "      sum.x = j ? sum.x + g[j] * s.x : g[j] * s.x;\n"
+     "      sum.y = j ? sum.y + g[j] * s.y : g[j] * s.y;\n    }\n"
+     "    acc.x += sum.x;\n    acc.y += sum.y;"],
+    ["      f_acc.x = fmaf(gc, s.x, f_acc.x);\n"
+     "      f_acc.y = fmaf(gc, s.y, f_acc.y);",
+     "      f_acc.x += gc * s.x;\n      f_acc.y += gc * s.y;"]]
+def xy_threads(k):
+    return [["constexpr int kXyThreads = 2 * kXyPoints;",
+             f"constexpr int kXyThreads = {k} * kXyPoints;"]]
+_RAY_STAGED = [
+    ["  __shared__ __align__(16) T slab[kXyPoints * kMaxRow + E];\n",
+     "  __shared__ __align__(16) T slab[kXyPoints * kMaxRow + E];\n"
+     "  __shared__ __align__(16) float rays[kXyPoints * kMaxC];\n"],
+    ["    asm volatile(\"cp.async.commit_group;\" ::: \"memory\");\n  }\n"
+     "  for (int j = t; j < 2 * kXyPoints;",
+     "    if (kVec)\n"
+     "      for (int s = t; s < n * C / 4; s += kXyThreads)\n"
+     "        asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\" ::\"r\"(\n"
+     "                         smem_addr(rays + 4 * s)),\n"
+     "                     \"l\"(d_ray + p0 * C + 4 * s)\n"
+     "                     : \"memory\");\n"
+     "    asm volatile(\"cp.async.commit_group;\" ::: \"memory\");\n  }\n"
+     "  for (int j = t; j < 2 * kXyPoints;"],
+    ["          load_k<K>(ray, gr);",
+     "          for (int j = 0; j < K; ++j) gr[j] = rays[i * C + c + j];"]]
+
+# B'-xy, csrc/epipolar_gather.cu's xy_grad_kernel: each step of its design
+# undone (the taps computed by every lane of a point; d_rgb_feats read from
+# global memory, a float a lane and channel; the image's taps by lanes 0-2,
+# four floats each; the image's taps awaited before the maps' are read; no
+# FMAs; bfloat16 at 8 lanes a point (four channels, 8-byte reads); blocks
+# of 128 threads, a point a lane in bfloat16 and two in float32; all of
+# these, at 8 lanes a point and 256 threads: PR 14's design in this source;
+# the rounds not unrolled; d_xy divided and stored by lane 0 alone),
+# d_ray_feats staged too, float32 at 4 lanes a point, other block sizes and
+# register caps, and probes (wrong on purpose) without map reads, without
+# upstream reads, or both
+XY_VARIANTS = {
+    "taps_per_lane": _TAPS_PER_LANE,
+    "upstream_direct": _UPSTREAM_DIRECT,
+    "image_taps": _IMAGE_TAPS,
+    "image_shuffle_first": [[_SHUFFLE, ""], [_ACC, _SHUFFLE + _ACC]],
+    "no_fma": _NO_FMA,
+    "lanes_8_bf16": xy_lanes(8, 8),
+    "threads_128": xy_threads(4),
+    "pr14_steps": _TAPS_PER_LANE + _UPSTREAM_DIRECT + _IMAGE_TAPS
+    + _NO_FMA + xy_lanes(8, 8) + xy_threads(8),
+    "rounds_not_unrolled": [
+        ["#pragma unroll\n  for (int r = 0; r < kXyRounds;",
+         "#pragma unroll 1\n  for (int r = 0; r < kXyRounds;"]],
+    "dxy_lane_0": [[   # lane 0 divides both and stores them as one float2
+        "    if (l < 2 && live)   // lane 0 d_x, lane 1 d_y: one division for "
+        "both\n      d_xy[2 * (p0 + i) + l] =\n"
+        "          (l ? dy : dx) * 2.0f / static_cast<float>(l ? H - 1 : W - 1);",
+        "    if (l == 0 && live) {\n"
+        "      const float ox = dx * 2.0f / static_cast<float>(W - 1);\n"
+        "      const float oy = dy * 2.0f / static_cast<float>(H - 1);\n"
+        "      float* out = d_xy + 2 * (p0 + i);\n"
+        "      if (reinterpret_cast<uintptr_t>(out) % 8 == 0) {\n"
+        "        *reinterpret_cast<float2*>(out) = make_float2(ox, oy);\n"
+        "      } else {\n        out[0] = ox;\n        out[1] = oy;\n      }\n"
+        "    }"]],
+    "ray_staged": _RAY_STAGED,
+    "lanes_4_f32": xy_lanes(4, 4),
+    "points_64": xy_points(64),
+    "points_128": xy_points(128),
+    # 48 registers: 20 blocks of 64 threads an SM
+    "min_blocks_20": xy_min_blocks(20),
+    "probe_no_map_reads": _NO_MAPS,
+    "probe_no_upstream_reads": _NO_UPSTREAM,
+    "probe_no_reads": _NO_MAPS + _NO_UPSTREAM,
+}
+
+# The same probes, and block shapes, written for PR 14's xy kernel (eight
+# lanes a point, each computing the point's taps; 256-thread blocks):
+# applied to each --against source that holds their texts.
+_NO_MAPS_PR14 = [
+    ["    const float4 a = load4(t), b = load4(t + q.dx), d = load4(t + q.dy),\n"
+     "                 e = load4(t + q.dy + q.dx);",
+     "    const float4 a = make_float4(q.wx, q.wy, q.owx, q.owy),\n"
+     "                 b = make_float4(q.wy, q.owx, q.owy, q.wx),\n"
+     "                 d = make_float4(q.owx, q.owy, q.wx, q.wy),\n"
+     "                 e = make_float4(q.owy, q.wx, q.wy, q.owx);"],
+    _ELEMENT_TAPS]
+_NO_UPSTREAM_PR14 = [
+    ["gi[j] = j < k ? to_f(up[j]) * m : 0.0f;",
+     "gi[j] = j < k ? (up == nullptr) + m : 0.0f;"],
+    ["        const float4 r = ld4(d_ray + p * C + c);",
+     "        const float4 r = make_float4(m, 1.0f, 1.0f, 1.0f);"],
+    ["      const float g = to_f(d_rgb[p * (3 + C) + l]) * m;",
+     "      const float g = m;"]]
+XY_PARENT_PROBES = {
+    "probe_no_map_reads": _NO_MAPS_PR14,
+    "probe_no_upstream_reads": _NO_UPSTREAM_PR14,
+    "probe_no_reads": _NO_MAPS_PR14 + _NO_UPSTREAM_PR14,
+    # the taps and weights computed once a point (threads 0-31 the
+    # quarter-res ones, 32-63 the full-res ones, into shared memory), the
+    # rest as it is
+    "taps_once": [
+        ["  float2 q_acc = make_float2(0.0f, 0.0f), f_acc = q_acc;\n"
+         "  if (p < P) {   // the same for all lanes of the point\n"
+         "    const float m = valid[p] ? 1.0f : 0.0f;\n"
+         "    const float2 n = normalised(xy, p, H, W);\n",
+         "  __shared__ Point pts[kXyPoints], rgbs[kXyPoints];\n"
+         "  {\n"
+         "    const int t = threadIdx.x, i = t % kXyPoints;\n"
+         "    const int pt = blockIdx.x * kXyPoints + i;\n"
+         "    if (t < 2 * kXyPoints && pt < P) {\n"
+         "      const float mt = valid[pt] ? 1.0f : 0.0f;\n"
+         "      const float2 nt = normalised(xy, pt, H, W);\n"
+         "      if (t < kXyPoints) pts[i] = quarter_point(nt, fh, fw, C, mt);\n"
+         "      else rgbs[i] = full_point(nt, H, W, mt);\n"
+         "    }\n"
+         "  }\n"
+         "  __syncthreads();\n"
+         "  float2 q_acc = make_float2(0.0f, 0.0f), f_acc = q_acc;\n"
+         "  if (p < P) {   // the same for all lanes of the point\n"
+         "    const float m = pts[threadIdx.x / kLanes].m;\n"],
+        ["      const Point q = quarter_point(n, fh, fw, C, m);",
+         "      const Point q = pts[threadIdx.x / kLanes];"],
+        ["add_slopes<false>(imgs, full_point(n, H, W, m), l, 1, &g, f_acc);",
+         "add_slopes<false>(imgs, rgbs[threadIdx.x / kLanes], l, 1, &g, "
+         "f_acc);"]],
+    # 64-thread blocks; register caps of 40 and 32 (6 and 8 blocks of 256
+    # threads an SM)
+    "warps_2": [["constexpr int kXyWarps = 8;", "constexpr int kXyWarps = 2;"]],
+    "min_blocks_6": [["__launch_bounds__(32 * kXyWarps)\nxy_grad_kernel",
+                      "__launch_bounds__(32 * kXyWarps, 6)\nxy_grad_kernel"]],
+    "min_blocks_8": [["__launch_bounds__(32 * kXyWarps)\nxy_grad_kernel",
+                      "__launch_bounds__(32 * kXyWarps, 8)\nxy_grad_kernel"]],
+}
+
+XY_CASES = {"random P=64000": ("random", 64000),
+            "planner P=64000": ("planner", 64000),
+            "border P=64000": ("border", 64000)}
+XY_RTOL = 1e-5   # chip_smoke.py's, of the largest |d_xy|
+XY_INSTANCES = {"float32": ("epipolar_gather_backward_xy", torch.float32),
+                "bfloat16": ("epipolar_gather_backward_xy_bf16",
+                             torch.bfloat16)}
+FWD_NAMES = {"float32": "epipolar_gather_forward",
+             "bfloat16": "epipolar_gather_forward_bf16"}
+
+
+def xy_inputs(dev, coords, P, seed=0):
+    """The gather's float32 inputs and upstream on the card: imgs,
+    img_feats, ray_feats, xy, valid, d_rgb, d_ray. "border": the random
+    coordinates with every point clamped on one axis, as chip_smoke.py's
+    border_inputs (the first half left or right of the columns, the second
+    above or below the rows, 0.01 to 6 px past the outer pixel centre)."""
+    gen = torch.Generator().manual_seed(seed + 1)
+    imgs, f1, f2, xy, valid = inputs(
+        "cpu", "random" if coords == "border" else coords, P, seed)
+    if coords == "border":
+        low = torch.rand(V, P, generator=gen) > 0.5
+        off = 0.01 + torch.rand(V, P, generator=gen) * 6
+        xy = xy.clone()
+        for axis, size, pts in ((0, W, slice(0, P // 2)),
+                                (1, H, slice(P // 2, P))):
+            xy[:, pts, axis] = torch.where(low[:, pts], -off[:, pts],
+                                           size - 1 + off[:, pts])
+    d_rgb = torch.randn(V, P, 3 + C, generator=gen)
+    d_ray = torch.randn(V, P, C, generator=gen)
+    return [t.to(dev) for t in (imgs, f1, f2, xy, valid, d_rgb, d_ray)]
+
+
+def xy_args(ins, dtype):
+    """xy_inputs in an instance's dtypes: the maps and d_rgb in `dtype`."""
+    imgs, f1, f2, xy, valid, d_rgb, d_ray = ins
+    return ([t.to(dtype) for t in (imgs, f1, f2)]
+            + [xy, valid, d_rgb.to(dtype), d_ray])
+
+
+def shifted(t):
+    """The same values one element past a 16-byte boundary (chip_smoke.py's
+    misaligned case)."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return out[1:].view_as(t).copy_(t)
+
+
+def c_launch(lib, name, tensors, P):
+    """A bare launch of one of the gather's C entry points on `tensors`
+    (pointers, then V, P, H, W, fh, fw, C and the stream)."""
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptrs = [t.data_ptr() for t in tensors]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        build.check(fn(*ptrs, V, P, H, W, H // 4, W // 4, C, stream), name)
+    launch.keep = tensors
+    return launch
+
+
+def xy_bound_ms(args):
+    """chip_smoke.py's bound of B'-xy: every input read once (the maps
+    whole), d_xy written once, over 3.35 TB/s (it is bound by bytes)."""
+    return 1e3 * (sum(t.numel() * t.element_size() for t in args)
+                  + args[3].numel() * 4) / 3.35e12
+
+
+def xy_main(src, against, dev) -> int:
+    from ..ops.epipolar_gather import epipolar_gather_backward_xy_plain
+    srcs = {"kernel": src}
+    for name, subs in XY_VARIANTS.items():
+        srcs[name] = variant(src, subs)
+    for k, text in enumerate(against):   # against, against_1, ...
+        key = "against" + (f"_{k}" if k else "")
+        srcs[key] = text
+        for name, subs in XY_PARENT_PROBES.items():
+            try:
+                srcs[f"{key}+{name}"] = variant(text, subs)
+            except ValueError:
+                print(f"{key}: {name} does not apply, left out")
+    libs = compile_all(srcs, strict=False)
+    if "kernel" not in libs:
+        return 1
+    print(smi("name,power.limit"))
+    for name, (lib, so, _) in libs.items():
+        # SASS instructions of the xy kernel's four instances
+        info = {"sass": {re.sub(r".*xy_grad_kernelILb(\d)E(\w+?)E.*", r"vec \1 \2",
+                                k): v for k, v in sass_counts(so).items()
+                         if "xy_grad_kernel" in k}}
+        for inst in XY_INSTANCES:
+            out = (ctypes.c_int * 3)()
+            lib.epipolar_gather_backward_xy_info.argtypes = [
+                ctypes.c_int, ctypes.c_void_p]
+            build.check(lib.epipolar_gather_backward_xy_info(
+                int(inst == "bfloat16"), out), "xy_info")
+            info[inst] = dict(zip(("registers", "spill_bytes",
+                                   "static_smem"), out))
+        print(f"{name}: xy kernel as built {json.dumps(info)}")
+    probes = {n for n in libs if "probe_" in n}
+    bad = set()
+    # ragged blocks, and tensors one element past 16 bytes (the element
+    # path; the upstream slab at every offset), held to the plain version
+    for P, shift in ((1, False), (33, False), (1000, False), (1000, True)):
+        ins = xy_inputs(dev, "random", P)
+        for inst, (fn, dtype) in XY_INSTANCES.items():
+            args = xy_args(ins, dtype)
+            if shift:
+                args = [shifted(t) for t in args]
+            want = epipolar_gather_backward_xy_plain(*args)
+            d_xy = shifted(torch.empty(V, P, 2, device=dev)) if shift else (
+                torch.empty(V, P, 2, device=dev))
+            for name, (lib, _, _) in libs.items():
+                if name in probes:
+                    continue
+                d_xy.fill_(float("nan"))
+                c_launch(lib, fn, args + [d_xy], P)()
+                torch.cuda.synchronize()
+                if not float((d_xy - want).abs().max()) <= XY_RTOL * float(
+                        want.abs().max()):
+                    bad.add(f"{name} {inst} P={P}" + " shifted" * shift)
+    ms = {f"{n} {i}": {c: [] for c in XY_CASES}
+          for n in libs for i in XY_INSTANCES}
+    fwd = {i: {} for i in XY_INSTANCES}
+    bound = {i: {} for i in XY_INSTANCES}
+    differ = {}
+    for case, (coords, P) in XY_CASES.items():
+        ins = xy_inputs(dev, coords, P)
+        for inst, (fn, dtype) in XY_INSTANCES.items():
+            args = xy_args(ins, dtype)
+            want = epipolar_gather_backward_xy_plain(*args)
+            scale = float(want.abs().max())
+            d_xy = torch.empty(V, P, 2, device=dev)
+            got = {}
+            for name, (lib, _, _) in libs.items():
+                if name in probes:
+                    continue
+                d_xy.fill_(float("nan"))
+                c_launch(lib, fn, args + [d_xy], P)()
+                torch.cuda.synchronize()
+                got[name] = d_xy.clone()
+                err = float((d_xy - want).abs().max())
+                if not err <= XY_RTOL * scale:
+                    bad.add(f"{name} {inst}")
+                half = P // 2   # border: exactly 0 along the clamped axis
+                if coords == "border" and not (
+                        bool((d_xy[:, :half, 0] == 0).all())
+                        and bool((d_xy[:, half:, 1] == 0).all())):
+                    bad.add(f"{name} {inst} clamped axis")
+            differ[f"{case} {inst}"] = {
+                n: float((g - got["kernel"]).abs().max())
+                for n, g in got.items() if not torch.equal(g, got["kernel"])}
+            order = list(libs)
+            for name in order + order[::-1]:     # in turns, then back
+                ms[f"{name} {inst}"][case].append(cuda_ms(c_launch(
+                    libs[name][0], fn, args + [d_xy], P)))
+            # the yardstick: the kernel build's forward on the same inputs
+            rgb = torch.empty(V, P, 3 + C, device=dev, dtype=dtype)
+            ray = torch.empty(V, P, C, device=dev)
+            fwd[inst][case] = cuda_ms(c_launch(
+                libs["kernel"][0], FWD_NAMES[inst], args[:5] + [rgb, ray], P))
+            bound[inst][case] = xy_bound_ms(args)
+        del ins
+    print(f"builds beyond {XY_RTOL} of the plain version's largest |d_xy|: "
+          f"{sorted(bad)}")
+    print("builds whose d_xy differs from the kernel build's (max abs "
+          "difference): " + json.dumps(differ))
+    print(f"bare launch ms (CUDA events, mean of 20, two turns), SM clock "
+          f"after the run {smi('clocks.sm')}:")
+    for inst in XY_INSTANCES:
+        base = {c: sum(ms[f"kernel {inst}"][c]) / 2 for c in XY_CASES}
+        print(f"  {inst}: bound " + "  ".join(
+            f"{c}: {bound[inst][c]:.4f}" for c in XY_CASES))
+        print(f"  {inst}: forward (kernel build) " + "  ".join(
+            f"{c}: {fwd[inst][c]:.4f}" for c in XY_CASES))
+        for name in libs:
+            mean = {c: sum(ms[f"{name} {inst}"][c]) / 2 for c in XY_CASES}
+            print(f"  {name + ' ' + inst:42s} " + "  ".join(
+                f"{c}: {mean[c]:.4f} ({100 * (mean[c] / base[c] - 1):+.1f} %,"
+                f" {100 * bound[inst][c] / mean[c]:.1f} % of bound, "
+                f"{mean[c] / fwd[inst][c]:.2f} x fwd)" for c in XY_CASES))
+    print(json.dumps({"ms": ms, "forward_ms": fwd, "bound_ms": bound,
+                      "bad": sorted(bad)}))
+    return 1 if any(b.startswith("kernel ") for b in bad) else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", metavar="FILE", action="append",
@@ -518,6 +916,8 @@ def main() -> int:
                     help="the backward's builds instead of the forward's")
     ap.add_argument("--variants", metavar="A,B",
                     help="with --backward: only these BACKWARD_VARIANTS")
+    ap.add_argument("--xy", action="store_true",
+                    help="the gradient with respect to xy's builds instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("gather_variants: no CUDA device", file=sys.stderr)
@@ -529,6 +929,8 @@ def main() -> int:
     for path in args.against:
         with open(path) as f:
             against.append(f.read())
+    if args.xy:
+        return xy_main(src, against, dev)
     if args.backward:
         only = args.variants.split(",") if args.variants else None
         if only and set(only) - set(BACKWARD_VARIANTS):

@@ -89,11 +89,19 @@ def fusion_inputs(seed, n=5, h=48, w=64):
 def test_integrate_tsdf_matches_jax(seed, res):
     args = fusion_inputs(seed)
     tsdf_j, w_j = (np.asarray(a) for a in j_integrate(*args, 0.3, res))
-    tsdf_t, w_t = integrate_tsdf(*args, 0.3, res)
+    tsdf_t, w_t = integrate_tsdf(*args, 0.3, res, device="cpu")
     assert tsdf_t.shape == w_t.shape == (res,) * 3
     np.testing.assert_array_equal(w_t.numpy(), w_j)
     assert (w_j > 0).any() and (w_j == 0).any()
     np.testing.assert_allclose(tsdf_t.numpy(), tsdf_j, rtol=0, atol=SDF_ATOL)
+
+
+def test_integrate_tsdf_runs_on_the_card_by_default(monkeypatch):
+    """No device means the card: without one the fusion raises instead of
+    running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        integrate_tsdf(*fusion_inputs(0), 0.3, 8)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
