@@ -27,7 +27,7 @@ NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
    loop) at full width on generated scenes -- the port's synthetic
    generator at 288 x 512, 512 rays, 40^3, 32 grasps, four data worker
    processes with the native tracer -- for 12 steps with logging, validation,
-   a validation image dump and checkpoints, then resumes a fresh Trainer
+   a validation image dump (which must be written) and checkpoints, then resumes a fresh Trainer
    from `latest` for 2 more steps; checks the launches per step and per val
    batch, that every logged loss is finite and no update was skipped, that
    the restored state equals the saved one bit for bit, and the first loop
@@ -102,7 +102,20 @@ NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
    no path (0 launches in every phase above): held against its plain
    version on random, the planner's and border-clamped coordinates, at
    ragged P and misaligned, through `torch.autograd.grad`, with inf and NaN
-   upstream at invalid points; registers, spills and times.
+   upstream at invalid points; registers, spills and times;
+18. training on a (data, space) mesh of ranks (`parallel`), at the full
+   training shape: (a) `python3 -m graspnerf_tpu_torch.train.cli --mesh 1,1
+   --dist-backend nccl` (world size 1) for a few steps against the same
+   command without a mesh (losses and parameters; launches a step); (b)
+   two gloo ranks on the one card (spawned processes, each joined with a
+   timeout) at (2, 1) and (1, 2), float32 and bfloat16: one step each held
+   to the one-process step on the same scenes (losses, the all-reduced
+   gradients, every parameter bit-equal across the ranks), the ranks' step
+   times beside the one-process step's, the launches a rank and step,
+   each rank's peak memory, and which collectives gloo takes on CUDA
+   tensors; (c) the command of (a) at `--mesh 1,2 --dist-backend gloo`,
+   its two ranks on the one card, each batch loaded by the first and
+   broadcast to the second (losses against the command without a mesh).
 
 `--profile` adds a torch.profiler breakdown of a planning call, of a
 render and of a train step by stage and by op. It prints a `kernels` JSON
@@ -275,6 +288,24 @@ VOL_BF16_MAX, VOL_BF16_MEAN = 0.05, 0.005
 HEAD_BF16_RTOL = 1e-1
 RENDER_BF16_ATOL = 5e-2
 LAST_FLIP_SHARE = 5e-3
+# the parallel phase: (a) train.cli at world size 1 under NCCL against the
+# same command without a mesh, PAR_NCCL_STEPS steps at full width; bit-
+# equality is expected (one process, the same batches, an all-reduce over
+# one rank), but the plain index_add_ and cuDNN's backward may add in
+# another order between two runs, and Adam turns an ulp in a near-zero
+# gradient into up to 2 x lr a step: the losses are held at
+# TRAIN_LOSS_RTOL, the parameters at PAR_NCCL_ATOL, and the distance
+# printed. (b) two gloo ranks on the one card, one step of each case
+# (dtype, axis, mesh) against the one-process step on the same scenes, the
+# fine pass at its samples: the losses at JAX's bounds for its sharded
+# step (tests/test_training.py:106), the all-reduced gradients at the train
+# phases' tolerances (TRAIN_GRAD_RTOL, TRAIN_BF16_GRAD_RTOL), then
+# PAR_TIMED timed steps; every rank is joined within PAR_TIMEOUT seconds.
+PAR_NCCL_STEPS, PAR_NCCL_ATOL = 3, 1e-3
+PAR_LOSS_RTOL, PAR_LOSS_ATOL = 2e-3, 2e-4
+PAR_CASES = (("float32", "data", (2, 1)), ("float32", "space", (1, 2)),
+             ("bfloat16", "data", (2, 1)), ("bfloat16", "space", (1, 2)))
+PAR_TIMED, PAR_TIMEOUT = 5, 300
 BF16 = torch.bfloat16
 # H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, bfloat16 on
 # the tensor cores (dense), HBM3.
@@ -1486,23 +1517,6 @@ def check_gather_bf16(dev, gen, planner, scene, render_args):
 
 
 # ------------------------------------------------------------ train step
-def pinned_fine_samples(fn, pinned=None):
-    """Runs fn with `sample_fine_depth`, as the renderer calls it, recording
-    the samples it returns; with `pinned`, the renderer gets those instead.
-    Returns (fn's result, the samples sample_fine_depth computed)."""
-    from graspnerf_tpu_torch.ops import geometry
-    original, own = geometry.sample_fine_depth, []
-
-    def record(*args, **kw):
-        own.append(original(*args, **kw))
-        return own[-1] if pinned is None else pinned
-    geometry.sample_fine_depth = record
-    try:
-        return fn(), own[0]
-    finally:
-        geometry.sample_fine_depth = original
-
-
 def train_model(use_kernels=True, seed=SEED, dtype="float32"):
     """A seeded GraspNeRF at the shipped widths, with configs/nrvgn_sdf.yaml's
     renderer settings (40 + 40 samples, the 40^3 volume, 8192 depth-loss
@@ -1576,10 +1590,11 @@ def compare_train(kern, plain, batch, dev, ref=None):
     from graspnerf_tpu_torch.ops.epipolar_gather import (
         epipolar_gather, epipolar_gather_backward)
     from graspnerf_tpu_torch.ops.view_fuse import view_fuse
+    from graspnerf_tpu_torch.tools.scene import pinned_fine_samples
     from graspnerf_tpu_torch.train import gradients, make_loss_fn
     what = "train" if ref is None else "train bf16"
     zero_counts()
-    args, ((total_k, ld_k), fine_k) = capture_kernel_args(
+    args, ((total_k, ld_k), [fine_k]) = capture_kernel_args(
         lambda: pinned_fine_samples(lambda: make_loss_fn(kern.model)(
             batch, torch.Generator(device=dev).manual_seed(SEED))))
     grads_k = gradients(kern, total_k)
@@ -1595,9 +1610,10 @@ def compare_train(kern, plain, batch, dev, ref=None):
         check(b16 == (3, 3, 3), f"{what}: bfloat16 launches {b16}")
 
     def run(state):
-        (total, ld), fine = pinned_fine_samples(
+        (total, ld), [fine] = pinned_fine_samples(
             lambda: make_loss_fn(state.model)(
-                batch, torch.Generator(device=dev).manual_seed(SEED)), fine_k)
+                batch, torch.Generator(device=dev).manual_seed(SEED)),
+            [fine_k])
         return ld, gradients(state, total), fine
     ld_p, grads_p, fine_p = run(plain)
     e_fine = max_err(fine_k, fine_p)
@@ -1891,8 +1907,7 @@ def read_log(workdir):
 
 def check_loop_log(recs):
     """Every step record finite with no skipped update; every val record
-    finite; a failed image dump only for want of PIL. Returns (step
-    records, val records)."""
+    finite; no failed image dump. Returns (step records, val records)."""
     logged = [r for r in recs if "sec_per_step" in r]
     vals = [r for r in recs if r.get("val")]
     check([r["step"] for r in logged] == list(range(
@@ -1905,9 +1920,8 @@ def check_loop_log(recs):
     for r in logged:
         check(r["nonfinite_grad"] == 0.0, f"loop: step {r['step']} skipped")
     for r in recs:
-        if "val_image_error" in r:
-            check("PIL" in r["val_image_error"], f"loop: the val image "
-                  f"dump failed: {r['val_image_error']}")
+        check("val_image_error" not in r, f"loop: the val image dump "
+              f"failed: {r.get('val_image_error')}")
     return logged, vals
 
 
@@ -1966,6 +1980,9 @@ def run_loop(dev, smi, step_ms):
               f"and val image ({fwd} forward, {3 * LOOP_STEPS} backward)")
         logged, vals = check_loop_log(read_log(workdir))
         check(len(vals) == val_events, f"loop: {len(vals)} validations")
+        dumps = sorted(os.listdir(f"{workdir}/vis_val"))
+        check(len(dumps) == val_events, f"loop: val image dumps {dumps}")
+        log(f"loop: val image dumps {dumps}")
 
         resumed = loop_trainer(dev, loader, val, workdir, seed=SEED + 1)
         restored, start, best = resumed.restore()
@@ -2693,6 +2710,417 @@ def run_dataset_train(dev, smi):
             "per_scene": per_scene}
 
 
+# ------------------------------------------------------------- parallel
+def stack_scenes(trees):
+    if isinstance(trees[0], dict):
+        return {k: stack_scenes([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def first_scene(tree):
+    if isinstance(tree, dict):
+        return {k: first_scene(v) for k, v in tree.items()}
+    return tree[:1]
+
+
+def parallel_batches(dev):
+    """{case: its global batch}: two seeded full-width scenes for the data
+    axis, the first alone for the space axis."""
+    from graspnerf_tpu_torch.tools.scene import training_batch
+    rng = np.random.RandomState(SEED)
+    two = stack_scenes([training_batch(rng, dev, VIEWS, HEIGHT, WIDTH,
+                                       TRAIN_RAYS, RES, TRAIN_GRASPS)
+                        for _ in range(2)])
+    return {"data": two, "space": first_scene(two)}
+
+
+class CollectiveClock:
+    """Counts the all_gather and all_reduce calls of torch.distributed while
+    it is entered, and the host ms spent inside them with the card drained
+    before and after each (so the card's queued work is not counted; the
+    wait for the other ranks to arrive is)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.calls, self.ms, self.saved = 0, 0.0, {}
+        for name in ("all_gather", "all_reduce"):
+            self.saved[name] = original = getattr(dist, name)
+
+            def timed(*args, _call=original, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _call(*args, **kw)
+                torch.cuda.synchronize()
+                self.ms += (time.perf_counter() - t0) * 1e3
+                self.calls += 1
+                return out
+            setattr(dist, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, original in self.saved.items():
+            setattr(dist, name, original)
+
+
+def parallel_step(dev, dtype, mesh, batch, fine=None, timed=PAR_TIMED):
+    """One training step of the seeded `train_model(dtype)` on this rank's
+    share of `batch` (the whole batch without a mesh), the fine pass at
+    `fine` (one tensor a scene of the global batch) when given: {metrics,
+    grads and params (on the CPU), finite, fine, launches, ms: the median,
+    min and max of `timed` more steps (CUDA events), peak_gib}."""
+    from graspnerf_tpu_torch.ops.epipolar_gather import (
+        epipolar_gather_backward)
+    from graspnerf_tpu_torch.parallel import (replicate, scene_indices,
+                                              shard_batch)
+    from graspnerf_tpu_torch.tools.scene import pinned_fine_samples
+    from graspnerf_tpu_torch.train import (apply_gradients,
+                                           create_train_state,
+                                           make_batched_loss_fn,
+                                           mesh_gradients, scene_generators)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = create_train_state(train_model(dtype=dtype), device=dev)
+    local, scenes = batch, range(batch["sdf_gt"].shape[0])
+    if mesh is not None:
+        state.model.nr_net.space = mesh.split
+        replicate(state.model)
+        local = shard_batch(mesh, batch)
+        scenes = scene_indices(mesh, local["sdf_gt"].shape[0])
+    loss_fn = make_batched_loss_fn(state.model)
+
+    def step(i):
+        metrics, grads = mesh_gradients(
+            state, loss_fn, local, scene_generators(SEED, i, scenes, dev),
+            mesh)
+        return metrics, grads, apply_gradients(state, grads)
+    zero_counts()
+    (metrics, grads, finite), own = pinned_fine_samples(
+        lambda: step(0), None if fine is None else [fine[i] for i in scenes])
+    torch.cuda.synchronize()
+    launches = dict(counts(), **bf16_counts()[0],
+                    epipolar_gather_backward_bf16=epipolar_gather_backward
+                    .bf16_launches)
+    out = {"metrics": {k: float(v.detach()) for k, v in metrics.items()},
+           "grads": [g.cpu() for g in grads], "finite": finite,
+           "params": [p.detach().cpu() for p in state.model.parameters()],
+           "fine": [f.cpu() for f in own], "launches": launches}
+    ms = []
+    for i in range(timed):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        step(i + 1)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    out["ms"] = [float(np.median(ms)), min(ms), max(ms)]
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if mesh is not None:   # one more step, its collectives timed alone
+        with CollectiveClock() as clock:
+            step(timed + 1)
+        out["collectives"] = (clock.calls, clock.ms)
+    return out
+
+
+def gloo_collectives(dev):
+    """What gloo takes on this rank's card: each collective on a float32
+    and a bfloat16 CUDA tensor, 'ok' or the error."""
+    import torch.distributed as dist
+    out = {}
+    for dtype in (torch.float32, BF16):
+        x = torch.ones(8, device=dev, dtype=dtype)
+        calls = {
+            "all_gather": lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(2)], x),
+            "all_reduce_sum": lambda: dist.all_reduce(x.clone()),
+            "all_reduce_avg": lambda: dist.all_reduce(
+                x.clone(), op=dist.ReduceOp.AVG),
+            "broadcast": lambda: dist.broadcast(x.clone(), 0),
+            "all_to_all_single": lambda: dist.all_to_all_single(
+                torch.empty_like(x), x.clone())}
+        for name, call in calls.items():
+            try:
+                call()
+                torch.cuda.synchronize()
+                out[f"{name} {str(dtype)[6:]}"] = "ok"
+            except Exception as e:   # recorded: what the backend refuses
+                out[f"{name} {str(dtype)[6:]}"] = repr(e)[:120]
+    return out
+
+
+def parallel_rank(rank, addr, tmp, dev):
+    """One of two gloo ranks on the card `dev` (a spawned process): the
+    gloo probe, then each case of PAR_CASES at its fine samples; writes
+    <tmp>/rank<r>.pt."""
+    from graspnerf_tpu_torch.parallel import initialize, make_mesh, shutdown
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    initialize(addr, 2, rank, "gloo", dev)
+    try:
+        fine = torch.load(f"{tmp}/fine.pt", weights_only=True)
+        batches = parallel_batches(dev)
+        out = {"collectives": gloo_collectives(dev)}
+        for dtype, case, shape in PAR_CASES:
+            out[dtype, case] = parallel_step(
+                dev, dtype, make_mesh(*shape), batches[case],
+                [f.to(dev) for f in fine[f"{dtype} {case}"]])
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        shutdown()
+
+
+def run_parallel_ranks(tmp, dev):
+    """The two ranks, each joined with a timeout; any failure fails."""
+    import torch.multiprocessing as mp
+    from graspnerf_tpu_torch.train.cli import free_port
+    ctx = mp.get_context("spawn")
+    addr = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=parallel_rank, args=(r, addr, tmp, dev))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        alive = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(not alive, f"parallel: ranks {alive} still running after "
+          f"{PAR_TIMEOUT} s")
+    codes = [p.exitcode for p in procs]
+    check(codes == [0, 0], f"parallel: rank exit codes {codes}")
+    return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+            for r in range(2)]
+
+
+def grad_distance(got, want, names, floor):
+    """The largest max |got - want| of a parameter's gradient over its
+    scale (those below `floor` skipped), and its name."""
+    worst = (0.0, None)
+    for name, g, w in zip(names, got, want):
+        scale = float(w.abs().max())
+        if scale >= floor and max_err(g, w) / scale > worst[0]:
+            worst = (max_err(g, w) / scale, name)
+    return worst
+
+
+def run_parallel_nccl(dev):
+    """(a) `train.cli --mesh 1,1 --dist-backend nccl` (world size 1) against
+    the same command without --mesh: PAR_NCCL_STEPS steps at full width
+    each, the same batches (in-process loading from one seed), every
+    logged loss held at TRAIN_LOSS_RTOL and the checkpoint's parameters at
+    PAR_NCCL_ATOL; the distances printed beside the command's distance
+    from itself. Returns {launches, steps}."""
+    import tempfile
+    from graspnerf_tpu_torch.train import cli, load_params
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in (("one process", []),
+                            ("mesh 1,1", ["--mesh", "1,1",
+                                          "--dist-backend", "nccl"]),
+                            ("one process again", [])):
+            zero_counts()
+            check(cli.main([
+                "--steps", str(PAR_NCCL_STEPS), "--workers", "0",
+                "--workdir", f"{tmp}/{len(runs)}", "--log-every", "1",
+                "--save-interval", str(PAR_NCCL_STEPS),
+                "--val-interval", "1000", "--no-tensorboard", *extra]) == 0,
+                f"parallel: train.cli {name}")
+            torch.cuda.synchronize()
+            recs = read_log(f"{tmp}/{len(runs)}")
+            runs[name] = {"launches": counts(), "recs": recs,
+                          "params": load_params(
+                              f"{tmp}/{len(runs)}/ckpt/latest")}
+    one, mesh, again = (runs[k] for k in ("one process", "mesh 1,1",
+                                          "one process again"))
+    cfg = mesh["recs"][0]
+    check(cfg["mesh"] == {"data": 1, "space": 1} and cfg["n_devices"] == 1
+          and cfg["dist_backend"] == "nccl", f"parallel (a): {cfg}")
+
+    def distance(a, b):
+        """Each step's largest relative loss difference, and the largest
+        parameter difference after the last step."""
+        steps = [[r for r in run["recs"] if "sec_per_step" in r]
+                 for run in (a, b)]
+        check(len(steps[0]) == len(steps[1]) == PAR_NCCL_STEPS,
+              "parallel (a): logged steps")
+        losses = [max(abs(x[k] - y[k]) / max(abs(x[k]), 1e-12) for k in x
+                      if k.startswith(("loss", "total")))
+                  for x, y in zip(*steps)]
+        return losses, max(max_err(a["params"][k], b["params"][k])
+                           for k in a["params"])
+    loss_err, param_err = distance(one, mesh)
+    check(max(loss_err) <= TRAIN_LOSS_RTOL and param_err <= PAR_NCCL_ATOL,
+          f"parallel (a): losses {loss_err} (rel), parameters "
+          f"{param_err:.3e} from one process")
+    check(one["launches"] == mesh["launches"] == {
+        k: 3 * PAR_NCCL_STEPS for k in one["launches"]},
+        f"parallel (a): launches {one['launches']} / {mesh['launches']}")
+    sec = {k: [r["sec_per_step"] for r in run["recs"] if "sec_per_step" in r]
+           for k, run in runs.items()}
+    log(f"parallel (a) train.cli --mesh 1,1 --dist-backend nccl, "
+        f"{PAR_NCCL_STEPS} steps at full width vs the same command without "
+        f"a mesh: losses {[f'{e:.3e}' for e in loss_err]} (rel, a step) and "
+        f"parameters {param_err:.3e} apart (bit-equal: "
+        f"{max(loss_err) == 0 and param_err == 0}); the command without a "
+        f"mesh against itself: {distance(one, again)}; sec_per_step "
+        f"{json.dumps(sec)}; launches {mesh['launches']} "
+        f"({one['launches']} without)")
+    return {"launches": mesh["launches"], "steps": PAR_NCCL_STEPS,
+            "one_process": one["recs"]}
+
+
+def run_parallel_space_cli(one_process):
+    """(c) `train.cli --mesh 1,2 --dist-backend gloo` on the one card: the
+    command's own two ranks, the scene group's first rank loading each
+    batch and broadcasting it to the other (CUDA tensors through gloo),
+    PAR_NCCL_STEPS steps at full width, the command stopped after
+    PAR_TIMEOUT s: it exits 0, one run-config line (rank 0's) with the
+    mesh, every step finite, and each step's losses held to those of (a)'s
+    command without a mesh (the same scenes and draws) at JAX's bounds for
+    its sharded step."""
+    import signal
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "graspnerf_tpu_torch.train.cli", "--mesh",
+             "1,2", "--dist-backend", "gloo", "--steps", str(PAR_NCCL_STEPS),
+             "--workers", "0", "--workdir", tmp, "--log-every", "1",
+             "--save-interval", str(PAR_NCCL_STEPS), "--val-interval",
+             "1000", "--no-tensorboard"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)   # its ranks are stopped with it
+        try:
+            out, _ = proc.communicate(timeout=PAR_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, _ = proc.communicate()
+            check(False, f"parallel (c): train.cli --mesh 1,2 still running "
+                  f"after {PAR_TIMEOUT} s: {out[-2000:]}")
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"parallel (c): train.cli --mesh 1,2 "
+              f"exit {proc.returncode}: {out[-3000:]}")
+        recs = read_log(tmp)
+        saved = sorted(os.listdir(f"{tmp}/ckpt"))
+    cfgs = [r for r in recs if r.get("run_config")]
+    check(len(cfgs) == 1 and cfgs[0]["mesh"] == {"data": 1, "space": 2}
+          and cfgs[0]["n_devices"] == 2 and cfgs[0]["dist_backend"] == "gloo",
+          f"parallel (c): run-config lines {cfgs}")
+    check(saved == ["latest", f"step_{PAR_NCCL_STEPS}.pt"],
+          f"parallel (c): checkpoints {saved}")
+    steps = [r for r in recs if "sec_per_step" in r]
+    want = [r for r in one_process if "sec_per_step" in r]
+    check([r["step"] for r in steps] == [r["step"] for r in want],
+          f"parallel (c): logged steps {[r['step'] for r in steps]}")
+    worst = 0.0
+    for got, w in zip(steps, want):
+        bad = [k for k, v in got.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        check(not bad and got["nonfinite_grad"] == 0.0,
+              f"parallel (c): step {got['step']} not finite: {bad}")
+        for k in w:
+            if k.startswith(("loss", "total")):
+                err = abs(got[k] - w[k])
+                check(err <= PAR_LOSS_ATOL + PAR_LOSS_RTOL * abs(w[k]),
+                      f"parallel (c) step {got['step']} {k}: {got[k]} vs "
+                      f"{w[k]} without a mesh")
+                worst = max(worst, err / max(abs(w[k]), 1e-12))
+    log(f"parallel (c) train.cli --mesh 1,2 --dist-backend gloo (two ranks "
+        f"on the one card, the group's first rank loading and broadcasting "
+        f"each batch), {PAR_NCCL_STEPS} steps at full width: losses within "
+        f"{worst:.3e} (rel, largest) of the command without a mesh; "
+        f"sec_per_step {[r['sec_per_step'] for r in steps]} against "
+        f"{[r['sec_per_step'] for r in want]} without; the command "
+        f"{wall:.1f} s wall, its two processes' start included")
+
+
+def run_parallel(dev, smi):
+    """The parallel phase: (a) NCCL at world size 1 through train.cli, (c)
+    train.cli on a (1, 2) mesh of two gloo ranks, (b) two gloo ranks on the
+    one card at (2, 1) and (1, 2), float32 and bfloat16, one step each held
+    to the one-process step on the same scenes (the fine pass at its
+    samples): losses at JAX's sharded-step bounds, the all-reduced
+    gradients at the train phases' tolerances, every parameter bit-equal
+    across the ranks; step times and launches per rank beside the
+    one-process step's. Returns {launches: (a)'s, per rank and step of
+    each case}."""
+    import tempfile
+    cards = torch.cuda.device_count()
+    log(f"parallel: {cards} card(s) on this machine; multi-card scaling "
+        + ("not measured (one card)" if cards == 1 else
+           "not measured by this script"))
+    nccl = run_parallel_nccl(dev)
+    run_parallel_space_cli(nccl.pop("one_process"))
+    batches = parallel_batches(dev)
+    names = [n for n, _ in train_model().named_parameters()]
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, fine = {}, {}
+        for dtype, case, _ in PAR_CASES:
+            ref[dtype, case] = parallel_step(dev, dtype, None, batches[case])
+            fine[f"{dtype} {case}"] = ref[dtype, case]["fine"]
+        torch.save(fine, f"{tmp}/fine.pt")
+        del batches
+        torch.cuda.empty_cache()
+        ranks = run_parallel_ranks(tmp, dev)
+    log(f"parallel (b): gloo on CUDA tensors: "
+        + json.dumps(ranks[0]["collectives"]))
+    launches = {}
+    for dtype, case, shape in PAR_CASES:
+        want, got = ref[dtype, case], [r[dtype, case] for r in ranks]
+        what = f"parallel (b) {shape} {dtype}"
+        loss_rtol, grad_tol, floor = (
+            (PAR_LOSS_RTOL, TRAIN_GRAD_RTOL, GRAD_FLOOR) if dtype == "float32"
+            else (PAR_LOSS_RTOL, TRAIN_BF16_GRAD_RTOL, TRAIN_BF16_GRAD_FLOOR))
+        check(all(g["finite"] for g in got), f"{what}: an update skipped")
+        per_rank = [g["metrics"] for g in got]
+        merged = ({k: sum(m[k] for m in per_rank) / 2 for k in per_rank[0]}
+                  if case == "data" else per_rank[0])
+        if case == "space":
+            check(per_rank[0] == per_rank[1], f"{what}: ranks' losses differ")
+        loss_err = 0.0
+        for k, w in want["metrics"].items():
+            err = abs(merged[k] - w)
+            check(err <= PAR_LOSS_ATOL + loss_rtol * abs(w),
+                  f"{what} {k}: {merged[k]} vs one process {w}")
+            loss_err = max(loss_err, err / max(abs(w), 1e-12))
+        grad_err = [grad_distance(g["grads"], want["grads"], names, floor)
+                    for g in got]
+        for err, name in grad_err:
+            check(err <= grad_tol, f"{what}: gradient of {name} {err:.3e} "
+                  f"of its scale from one process (tol {grad_tol})")
+        same = all(torch.equal(a, b) for a, b in zip(got[0]["params"],
+                                                     got[1]["params"]))
+        check(same, f"{what}: the ranks' parameters differ after the update")
+        launches[f"{dtype} {case}"] = [g["launches"] for g in got]
+        kern = ("view_fuse", "epipolar_gather", "epipolar_gather_backward")
+        if dtype == "bfloat16":
+            kern += tuple(k + "_bf16" for k in kern)
+        for g in got:
+            check(all(g["launches"][k] == 3 for k in kern),
+                  f"{what}: launches a rank and step {g['launches']}")
+        share = ("2 scenes, one a rank" if case == "data" else
+                 f"{TRAIN_RAYS // 2} rays and {RES * RES // 2} volume "
+                 f"columns a rank")
+        log(f"{what} ({share}): "
+            f"losses {loss_err:.3e} (rel, largest) from one process; "
+            f"all-reduced gradients within {max(e for e, _ in grad_err):.3e} "
+            f"of their scale ({grad_err[0][1]}); parameters bit-equal across "
+            f"ranks; step ms a rank (median, min, max of {PAR_TIMED}) "
+            f"{[g['ms'] for g in got]} vs one process {want['ms']}; launches "
+            f"a rank and step {got[0]['launches']}; collectives a step "
+            f"and host ms inside them, the card drained around each, a rank "
+            f"{[g['collectives'] for g in got]}; peak GiB a rank "
+            f"{[round(g['peak_gib'], 2) for g in got]} (one process "
+            f"{want['peak_gib']:.2f})")
+    log(smi)
+    return {"nccl": nccl, "gloo": launches}
+
+
 def run_checkpoint_import(dev, inputs):
     """The reference-checkpoint import: a reference-format model_best.pth
     (network_state_dict in torch layout with one dead buffer, step, an
@@ -3013,6 +3441,7 @@ def main() -> int:
     train16 = run_train_bf16(dev)
     closed = run_closed_loop(dev, planner_params())
     dataset = run_dataset_train(dev, smi)
+    parallel = run_parallel(dev, smi)
     run_mesh(run_checkpoint_import(dev, inputs))
     # no path of either package asks for the gradient with respect to xy
     # (the cameras and samples carry none): 0 launches in every phase above
@@ -3070,6 +3499,16 @@ def main() -> int:
         # Trainer.run on the written dataset
         row["dataset_train_launches"] = dataset["launches"][name]
         row["dataset_train_steps"] = dataset["steps"]
+        # train.cli --mesh 1,1 under NCCL
+        row["parallel_nccl_launches"] = parallel["nccl"]["launches"][name]
+        row["parallel_nccl_steps"] = parallel["nccl"]["steps"]
+    for dtype, group in (("float32", rows), ("bfloat16", rows16)):
+        for row in group:
+            # each gloo rank's one step, by case of the row's dtype
+            row["parallel_gloo_launches_per_rank_step"] = {
+                case: [r[row["name"]] for r in ranks]
+                for case, ranks in parallel["gloo"].items()
+                if case.startswith(dtype)}
     for row in rows_xy:
         # reached by torch.autograd.grad with respect to xy only: no path
         for k in ("launches", "render_launches", "forward_launches",

@@ -28,7 +28,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .png import png_header, read_pngs
+from .png import read_rgb
 
 BLENDER2OPENCV = np.array([[1, 0, 0, 0], [0, -1, 0, 0],
                            [0, 0, -1, 0], [0, 0, 0, 1]], np.float32)
@@ -95,33 +95,10 @@ class VGNSynDatabase:
     def get_images(self, ids) -> np.ndarray:
         """rgb/%04d.png of each view in `ids` as float32 RGB in [0, 1] at
         `wh`, [len(ids), h, w, 3], as PIL's convert("RGB") and bilinear
-        resize give them. PIL reads them where it imports. Where it does
-        not, the in-tree decoder (data/png.py) reads 8-bit PNGs already at
-        `wh`, all of them in one pass, and any other image raises."""
-        paths = [str(self.dir / "rgb" / ("%04d.png" % i)) for i in ids]
-        try:
-            from PIL import Image
-        except ImportError:
-            return self._decode_in_tree(paths)
-        return np.stack([
-            np.asarray(Image.open(p).convert("RGB").resize(
-                self.wh, Image.BILINEAR), np.float32) / 255.0
-            for p in paths])
-
-    def _decode_in_tree(self, paths: List[str]) -> np.ndarray:
-        for p in paths:
-            w, h, depth, color, interlace = png_header(p)
-            if ((w, h) != self.wh or depth != 8 or color not in (0, 2, 4, 6)
-                    or interlace):
-                raise ImportError(
-                    f"{p}: a {w}x{h} PNG of bit depth {depth}, colour type "
-                    f"{color}, interlace {interlace} needs PIL to be read at "
-                    f"{self.wh[0]}x{self.wh[1]}")
-        # the colour channels (alpha dropped), grey repeated: convert("RGB")
-        rgb = [np.broadcast_to(img[..., :3] if img.shape[2] >= 3
-                               else img[..., :1], img.shape[:2] + (3,))
-               for img in read_pngs(paths)]
-        return np.stack(rgb).astype(np.float32) / 255.0
+        resize give them (`png.read_rgb`: PIL where it imports, else the
+        in-tree decoder for 8-bit PNGs already at `wh`)."""
+        return read_rgb([str(self.dir / "rgb" / ("%04d.png" % i))
+                         for i in ids], self.wh)
 
     def _read_map(self, sub: str, i: int) -> Optional[np.ndarray]:
         """Reads %04d.exr (reference contract) or %04d.npy (our generator)."""

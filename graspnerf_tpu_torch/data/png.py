@@ -15,6 +15,12 @@ need no image library (the card's machine has none).
                         size are unfiltered together (see `_unfilter`).
   png_header(path)      (width, height, bit depth, colour type, interlace)
                         from the IHDR, without decoding.
+  read_rgb(paths, wh)   PNGs as float32 RGB in [0, 1] at `wh`, as PIL's
+                        convert("RGB") and bilinear resize give them: PIL
+                        where it imports, else `read_pngs` for 8-bit PNGs
+                        already at `wh` (ImportError for any other image).
+  save_png(path, img)   PIL's `Image.fromarray(img).save(path)` where PIL
+                        imports, else `write_png`.
 
 Format reference: the PNG specification (ISO/IEC 15948), sections 5-9.
 """
@@ -201,3 +207,45 @@ def png_header(path: str):
         raise ValueError("PNG without IHDR")
     w, h, depth, color, _, _, interlace = struct.unpack(">IIBBBBB", body)
     return w, h, depth, color, interlace
+
+
+def read_rgb(paths, wh) -> np.ndarray:
+    """The PNGs at `paths` as float32 RGB in [0, 1] at wh = (w, h), [n, h,
+    w, 3], as PIL's convert("RGB") and bilinear resize give them. PIL reads
+    them where it imports. Where it does not, `read_pngs` reads 8-bit PNGs
+    already at wh (PIL's resize to its own size is a copy), all of them in
+    one pass, and any other image raises ImportError."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return _read_rgb_in_tree(list(paths), tuple(wh))
+    return np.stack([
+        np.asarray(Image.open(p).convert("RGB").resize(
+            tuple(wh), Image.BILINEAR), np.float32) / 255.0 for p in paths])
+
+
+def _read_rgb_in_tree(paths, wh) -> np.ndarray:
+    for p in paths:
+        w, h, depth, color, interlace = png_header(p)
+        if ((w, h) != wh or depth != 8 or color not in (0, 2, 4, 6)
+                or interlace):
+            raise ImportError(
+                f"{p}: a {w}x{h} PNG of bit depth {depth}, colour type "
+                f"{color}, interlace {interlace} needs PIL to be read at "
+                f"{wh[0]}x{wh[1]}")
+    # the colour channels (alpha dropped), grey repeated: convert("RGB")
+    rgb = [np.broadcast_to(img[..., :3] if img.shape[2] >= 3
+                           else img[..., :1], img.shape[:2] + (3,))
+           for img in read_pngs(paths)]
+    return np.stack(rgb).astype(np.float32) / 255.0
+
+
+def save_png(path: str, img: np.ndarray) -> None:
+    """img [h, w] or [h, w, 1-4] uint8 as a PNG file: through PIL where it
+    imports, else through `write_png` (PIL's bytes)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        write_png(path, img)
+        return
+    Image.fromarray(img).save(path)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..data.database import BLENDER2OPENCV
+from ..data.png import read_rgb
 from ..models import load_graspnerf, resolve_device
 from .postprocess import (process, nms, extract_candidates,
                           candidates_to_grasps)
@@ -113,18 +114,16 @@ def load_rendered_views(render_dir: str, camera_pose_file: str,
     rgb/%04d.png resized to `wh` (PIL, bilinear), camera_pose.npy (cam->world,
     Blender axes) -> world->cam OpenCV poses, and the fixed vgn_syn
     intrinsics scaled to `wh` unless K is given. Returns (images [V,h,w,3]
-    in [0,1], extrinsics [V,3,4], Ks [V,3,3]), numpy float32."""
-    from PIL import Image
-    imgs, poses = [], []
+    in [0,1], extrinsics [V,3,4], Ks [V,3,3]), numpy float32. Without PIL
+    the PNGs must be 8-bit and already at `wh` (`data.png.read_rgb`)."""
     cam_poses = np.load(camera_pose_file)
-    for i in view_ids:
-        p = os.path.join(render_dir, "rgb", "%04d.png" % i)
-        img = Image.open(p).convert("RGB").resize(wh, Image.BILINEAR)
-        imgs.append(np.asarray(img, np.float32) / 255.0)
-        poses.append(np.linalg.inv(cam_poses[i] @ BLENDER2OPENCV)[:3, :])
+    imgs = read_rgb([os.path.join(render_dir, "rgb", "%04d.png" % i)
+                     for i in view_ids], wh)
+    poses = [np.linalg.inv(cam_poses[i] @ BLENDER2OPENCV)[:3, :]
+             for i in view_ids]
     if K is None:
         K = np.array([[892.62, 0, 639.5], [0, 892.62, 359.5], [0, 0, 1]],
                      np.float32)
         K[:2] *= wh[0] / 1280.0
     Ks = np.tile(K[None], (len(view_ids), 1, 1)).astype(np.float32)
-    return (np.stack(imgs), np.stack(poses).astype(np.float32), Ks)
+    return imgs, np.stack(poses).astype(np.float32), Ks

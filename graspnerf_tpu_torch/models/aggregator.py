@@ -43,6 +43,12 @@ def neus_alpha(sdf, grad, que_dir, que_dists, inv_s, cos_anneal_ratio=1.0):
     return torch.clamp((p + 1e-5) / (prev_cdf + 1e-5), 0.0, 1.0)
 
 
+def gradient_error(grad):
+    """mean (|∇sdf| - 1)^2 over every point, [1,1] (the eikonal term)."""
+    return torch.mean((torch.linalg.norm(grad, dim=-1) - 1.0) ** 2
+                      ).reshape(1, 1)
+
+
 class SingleVariance(nn.Module):
     """Learned NeuS sharpness inv_s = exp(10 * variance)."""
 
@@ -98,10 +104,9 @@ class NeusAggregationNet(nn.Module):
                                           que_pts, (qn * rn, dn))
         sdf = sdf[..., 0].reshape(qn, rn, dn)
         inv_s, s_raw = self.deviation_network()
-        gnorm = torch.linalg.norm(grad, dim=-1)
         return {"sdf": sdf, "colors": colors.reshape(qn, rn, dn, 3),
                 "grad": grad,
                 "alpha": neus_alpha(sdf, grad, que_dir, que_dists, inv_s,
                                     cos_anneal_ratio),
-                "grad_error": torch.mean((gnorm - 1.0) ** 2).reshape(1, 1),
+                "grad_error": gradient_error(grad),
                 "s": s_raw.detach().reshape(1, 1)}

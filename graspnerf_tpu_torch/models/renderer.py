@@ -41,7 +41,7 @@ from ..ops import geometry
 from ..ops.epipolar_gather import epipolar_gather, epipolar_gather_plain
 from ..ops.interpolate import interpolate_feats, interpolate_feature_map
 from ..ops.tsdf import grid_points
-from .aggregator import NeusAggregationNet
+from .aggregator import NeusAggregationNet, gradient_error
 from .dist_decoder import MixtureLogisticsDistDecoder, compute_prob
 from .grasp_head import VGNConvNet
 from .layers import torch_dtype
@@ -125,6 +125,9 @@ class NeuralRayRenderer(nn.Module):
         self.use_depth_loss = use_depth_loss
         self.use_kernels = use_kernels
         self.compute_dtype = compute_dtype
+        # the space axis's `parallel.SpaceSplit` (JAX's `space_axis`), set
+        # by a Trainer on a mesh: None renders every ray on this process
+        self.space = None
         d = self.dtype = torch_dtype(compute_dtype)
         self.image_encoder = ResUNetLight(3, (1, 2, 6, 4), 32, 16, d)
         self.init_net = RayFeatInitNet(d)
@@ -166,19 +169,37 @@ class NeuralRayRenderer(nn.Module):
                         is_fine: bool, maps=None):
         """One render pass at the depths que_depth [qn,rn,dn]
         (renderer.py:161-197); maps: `gather_maps`' result, made here when
-        None."""
+        None. With a `space` split the pass (projection, dist decoder,
+        aggregator) runs this rank's rays, and their outputs are joined
+        back to all rn rays before the alpha's composite (renderer.py:171)."""
         dist_decoder = self.fine_dist_decoder if is_fine else self.dist_decoder
         agg_net = self.fine_agg_net if is_fine else self.agg_net
 
         que_dists_inv = geometry.depth2inv_dists(que_depth, que["depth_range"])
         que_pts, que_dir = geometry.depth2points(
             que["coords"], que["poses"], que["Ks"], que_depth)
+        que_dists = geometry.depth2dists(que_depth)
+        rn = que_pts.shape[1]
+        if self.space is not None:
+            rows = self.space.rows(rn)
+            que_dists_inv, que_pts, que_dir, que_dists = (
+                t[:, rows] for t in (que_dists_inv, que_pts, que_dir,
+                                     que_dists))
         if maps is None:
             maps = self.gather_maps(ref["imgs"], img_feats, ray_feats)
         prj = project_to_views(ref, que_pts, maps, self.use_kernels)
         prj = self._predict_ray_prob(dist_decoder, prj, ref["depth_range"],
                                      que_dists_inv)
-        agg = agg_net(prj, que_dir, que_pts, geometry.depth2dists(que_depth))
+        agg = agg_net(prj, que_dir, que_pts, que_dists)
+        if self.use_ray_mask:
+            m = torch.sum(prj["mask"], 0) > self.ray_mask_view_num  # qn,rn,dn,1
+            agg["ray_mask"] = (torch.sum(m, 2) > self.ray_mask_point_num)[..., 0]
+        if self.space is not None:
+            for k in ("sdf", "colors", "alpha", "grad", "ray_mask"):
+                if k in agg:
+                    agg[k] = self.space.join(agg[k], rn)
+            # the one term that mixes rays: its mean over all of them
+            agg["grad_error"] = gradient_error(agg["grad"])
 
         hit_prob = geometry.alpha2hit_prob(agg["alpha"])
         out = {"alpha_values": agg["alpha"], "colors_nr": agg["colors"],
@@ -190,8 +211,7 @@ class NeuralRayRenderer(nn.Module):
             out["pixel_colors_gt"] = interpolate_feats(
                 que["imgs"], que["coords"], align_corners=True)
         if self.use_ray_mask:
-            m = torch.sum(prj["mask"], 0) > self.ray_mask_view_num  # qn,rn,dn,1
-            out["ray_mask"] = (torch.sum(m, 2) > self.ray_mask_point_num)[..., 0]
+            out["ray_mask"] = agg["ray_mask"]
         if self.render_depth:
             out["render_depth"] = torch.sum(hit_prob * que_depth, -1)
         return out
@@ -225,9 +245,13 @@ class NeuralRayRenderer(nn.Module):
         """SDF on the res^3 workspace grid -> [res,res,res] (x,y,z order),
         float32. The grid is 1 x res^2 "rays" of res samples, so the ray
         attention runs along each z-column, sampled top-down (z flipped in
-        and back out). maps: `gather_maps`' result, made here when None."""
+        and back out). maps: `gather_maps`' result, made here when None.
+        With a `space` split this rank evaluates its share of the columns
+        and the SDF is joined back (renderer.py:229)."""
         res = self.volume_resolution
         que_pts = volume_query_points(res, self.volume_size, ref["bbox3d_min"])
+        if self.space is not None:
+            que_pts = que_pts[:, self.space.rows(res * res)]
         if maps is None:
             maps = self.gather_maps(ref["imgs"], img_feats, ray_feats)
         prj = project_to_views(ref, que_pts, maps, self.use_kernels)
@@ -235,6 +259,8 @@ class NeuralRayRenderer(nn.Module):
                                      ref["depth_range"], None)
         que_dir = que_pts.new_tensor([0.0, 0.0, 1.0]).expand_as(que_pts)
         sdf = self.agg_net.sdf(prj, que_dir, que_pts)
+        if self.space is not None:
+            sdf = self.space.join(sdf, res * res)
         return torch.flip(sdf.reshape(res, res, res), [2])
 
     def predict_mean_for_depth_loss(self, ref, ray_feats,

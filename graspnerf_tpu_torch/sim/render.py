@@ -585,8 +585,9 @@ def render_views_to_dir(scene: PrimScene, poses: np.ndarray, K: np.ndarray,
     """Write the reference's file contract (ref rd/render.py:254-332 +
     dataset/database.py:110-111): rgb/%04d.png for each frame id +
     camera_pose.npy [V,4,4] world->cam for ALL poses; optional depth/mask/
-    normal passes (the reference's DEPTH_EXR / mask / Normal outputs)."""
-    from PIL import Image
+    normal passes (the reference's DEPTH_EXR / mask / Normal outputs).
+    PNGs through PIL where it imports, else PIL's bytes from
+    `data.png.write_png`."""
     os.makedirs(os.path.join(outdir, "rgb"), exist_ok=True)
     for flag, sub in ((write_depth, "depth"), (write_mask, "mask"),
                       (write_normal, "normal"), (write_ir, "ir_l"),
@@ -596,11 +597,12 @@ def render_views_to_dir(scene: PrimScene, poses: np.ndarray, K: np.ndarray,
     frame_ids = (list(range(len(poses))) if frame_ids is None
                  else list(frame_ids))
     from ..data.exr import write_exr
+    from ..data.png import save_png
     for fid in frame_ids:
         rgb, depth, fg, nm = render_scene(scene, poses[fid], K, h, w,
                                           randomizer, return_normal=True)
-        Image.fromarray((rgb * 255).astype(np.uint8)).save(
-            os.path.join(outdir, "rgb", f"{fid:04d}.png"))
+        save_png(os.path.join(outdir, "rgb", f"{fid:04d}.png"),
+                 (rgb * 255).astype(np.uint8))
         if write_depth:  # reference DEPTH_EXR pass (rd/render_utils.py:585)
             write_exr(os.path.join(outdir, "depth", f"{fid:04d}.exr"),
                       depth.astype(np.float32))
@@ -613,8 +615,8 @@ def render_views_to_dir(scene: PrimScene, poses: np.ndarray, K: np.ndarray,
             irl, irr = render_ir_stereo(scene, poses[fid], K, h, w,
                                         randomizer, ir_baseline)
             for name, im in (("ir_l", irl), ("ir_r", irr)):
-                Image.fromarray((im * 255).astype(np.uint8)).save(
-                    os.path.join(outdir, name, f"{fid:04d}.png"))
+                save_png(os.path.join(outdir, name, f"{fid:04d}.png"),
+                         (im * 255).astype(np.uint8))
     # camera_pose.npy follows the reference contract: cam->world matrices in
     # Blender camera axes (ref dataset/database.py:110-111, the loader
     # computes world->cam = inv(pose @ BLENDER2OPENCV))

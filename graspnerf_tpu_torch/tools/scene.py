@@ -118,3 +118,22 @@ def training_batch(rng: np.random.RandomState, device, views: int = 6,
              "grasp_rot": q,
              "grasp_width": rng.uniform(0.5, 9.0, n_grasps)}
     return to_device(batch, device)
+
+
+def pinned_fine_samples(fn, pinned=None):
+    """Runs fn with the renderer's `sample_fine_depth` recorded: each call
+    draws as before (its generator moves on) and its samples are kept; with
+    `pinned` (one tensor a call, in order) the renderer gets those instead.
+    Returns (fn's result, the list of samples sample_fine_depth computed).
+    For holding two runs at the same fine samples: the inverse CDF
+    magnifies an ulp in a coarse hit probability."""
+    original, own = geometry.sample_fine_depth, []
+
+    def record(*args, **kw):
+        own.append(original(*args, **kw))
+        return own[-1] if pinned is None else pinned[len(own) - 1]
+    geometry.sample_fine_depth = record
+    try:
+        return fn(), own
+    finally:
+        geometry.sample_fine_depth = original

@@ -9,4 +9,4 @@ from .schedule import exp_decay_lr, warmup_exp_decay_lr
 from .trainer import (Trainer, TrainState, apply_gradients, check_trainable,
                       compute_losses, create_train_state, gradients,
                       make_batched_loss_fn, make_eval_step, make_loss_fn,
-                      make_train_step)
+                      make_train_step, mesh_gradients, scene_generators)

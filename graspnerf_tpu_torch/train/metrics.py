@@ -3,8 +3,8 @@ ref: src/nr/network/metrics.py).
 
 psnr, ssim and depth_mae take tensors and return 0-d tensors;
 visualize_image writes a side-by-side pred|gt panel like the reference's
-VisualizeImage (metrics.py:86-114). It imports PIL when called, so a machine
-without PIL can train: the trainer logs the failed dump and goes on.
+VisualizeImage (metrics.py:86-114), through PIL where it imports and
+otherwise through the port's own PNG writer (data/png.py: PIL's bytes).
 """
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ import os
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..data.png import save_png
 
 
 def psnr(pred, gt, max_val: float = 1.0):
@@ -63,11 +65,10 @@ def visualize_image(pred_rgb, gt_rgb, out_dir: str, step: int,
                     name: str = "val") -> str:
     """Write `<out_dir>/<step>-<name>.png`, pred | gt side by side (numpy
     or tensors, [H,W,3] in [0,1]); returns its path."""
-    from PIL import Image
     os.makedirs(out_dir, exist_ok=True)
     p = np.clip(np.asarray(torch.as_tensor(pred_rgb).cpu()), 0, 1)
     g = np.clip(np.asarray(torch.as_tensor(gt_rgb).cpu()), 0, 1)
     panel = (np.concatenate([p, g], axis=1) * 255).astype(np.uint8)
     path = os.path.join(out_dir, f"{step}-{name}.png")
-    Image.fromarray(panel).save(path)
+    save_png(path, panel)
     return path

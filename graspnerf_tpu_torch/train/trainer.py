@@ -3,7 +3,8 @@ the training forward (render, volume, grasp head, depth-loss means), the
 summed losses, their gradient for every parameter, an Adam update with the
 staircase-decay learning rate, skipped when a gradient is not finite; the
 scene-batched loss; and `Trainer`, the step loop with validation, image
-dumps, checkpoints and a JSONL metric log.
+dumps, checkpoints and a JSONL metric log, on one process or as one rank of
+a (data, space) mesh (`parallel`).
 
 Single-scene batch (trainer.py:18-23): {"data": the renderer's data dict
 with que["imgs"] and "grasp_index" [G,3], "true_depth" [V,H,W,1], "sdf_gt"
@@ -22,13 +23,15 @@ import math
 import os
 import subprocess
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
 from ..data.prefetch import to_device
 from ..models.renderer import GraspNeRF, float32_on, resolve_device
+from ..parallel import Mesh, all_mean, replicate, scene_indices
 from . import losses as L
 from .checkpoint import CheckpointManager
 from .schedule import exp_decay_lr
@@ -77,15 +80,18 @@ def scene(tree, i: int):
 
 
 def make_batched_loss_fn(model: GraspNeRF) -> Callable:
-    """loss_fn(batch, generator) over a scene batch: each scene's training
-    forward and losses in scene order, each drawing from `generator` in
-    turn, and the mean over the scenes of every loss and diagnostic
-    (trainer.py:74-97 vmaps over split keys instead)."""
+    """loss_fn(batch, generators) over a scene batch: scene i's training
+    forward and losses with its draws from generators[i], in scene order,
+    and the mean over the scenes of every loss and diagnostic
+    (trainer.py:74-97 vmaps over one split key a scene)."""
     single = make_loss_fn(model)
 
-    def loss_fn(batch, generator: torch.Generator):
-        per = [single(scene(batch, i), generator)[1]
-               for i in range(batch["sdf_gt"].shape[0])]
+    def loss_fn(batch, generators: Sequence[torch.Generator]):
+        n = batch["sdf_gt"].shape[0]
+        if len(generators) != n:
+            raise ValueError(f"{len(generators)} generators for {n} scenes")
+        per = [single(scene(batch, i), g)[1]
+               for i, g in enumerate(generators)]
         ld = {k: torch.stack([p[k] for p in per]).mean() for k in per[0]}
         return ld["total"], ld
     return loss_fn
@@ -112,6 +118,21 @@ def gradients(state: TrainState, total: torch.Tensor) -> List[torch.Tensor]:
     grads = torch.autograd.grad(total, params, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g
             for p, g in zip(params, grads)]
+
+
+def mesh_gradients(state: TrainState, loss_fn: Callable, batch,
+                   generators: Sequence[torch.Generator],
+                   mesh: Optional[Mesh] = None
+                   ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
+    """(this rank's losses and diagnostics, the gradients): loss_fn
+    (`make_batched_loss_fn`) on the rank's scenes, and on a mesh every
+    gradient averaged over the world, as one all-reduce (trainer.py:133-141
+    under pjit). The finite guard then decides the same on every rank."""
+    total, metrics = loss_fn(batch, generators)
+    grads = gradients(state, total)
+    if mesh is not None:
+        all_mean(grads)
+    return metrics, grads
 
 
 def apply_gradients(state: TrainState, grads: List[torch.Tensor]) -> bool:
@@ -178,10 +199,22 @@ def make_eval_step(state: TrainState) -> Callable:
     return eval_step
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The seed of step `step`'s draws: a function of (seed, step) alone,
-    so that a resumed run draws what an uninterrupted one would."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+def step_seed(seed: int, step: int, scene: int = 0) -> int:
+    """The seed of the draws of scene `scene` of step `step`'s global
+    batch: a function of (seed, step, scene) alone, so that a resumed run
+    draws what an uninterrupted one would, and a data rank draws for its
+    scenes what one process draws for them (JAX splits one key a scene).
+    Scene 0's is the step's seed."""
+    entropy = [seed, step] + ([scene] if scene else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1)[0])
+
+
+def scene_generators(seed: int, step: int, scenes: Sequence[int],
+                     device) -> List[torch.Generator]:
+    """A generator for each global scene index in `scenes`, seeded with
+    `step_seed(seed, step, scene)`."""
+    return [torch.Generator(device=device).manual_seed(
+        step_seed(seed, step, i)) for i in scenes]
 
 
 def adam_updates(optimizer: torch.optim.Optimizer) -> int:
@@ -214,8 +247,20 @@ class Trainer:
     (synchronising with the card only there), validates every
     `val_interval` steps (each val batch's draws from a generator seeded 0),
     dumps a validation image and saves with `key_metric`, and saves every
-    `save_interval` steps otherwise. Step s draws from a generator seeded
-    with `step_seed(seed, s)`.
+    `save_interval` steps otherwise. Scene i of step s's batch draws from a
+    generator seeded with `step_seed(seed, s, i)`.
+
+    mesh: a `parallel.Mesh` (JAX's `mesh`): this process is one rank of it,
+    train_iter yields this rank's S / n_data scenes (each data rank loads
+    its own, as JAX's host-local batches), and the renderer takes its share
+    of the rays and volume columns on `space`. Of a space group only the
+    first rank reads train_iter and val_batches (the others may pass None)
+    and broadcasts them to the rest, so that every rank of the group works
+    on the same scenes. Every rank restores from the
+    same `latest`, starts from rank 0's parameters, averages the gradients
+    over the world before the finite guard and Adam, validates and renders
+    the image dump; rank 0 alone writes the log, TensorBoard, the image and
+    the checkpoints, and logs the losses averaged over the world.
     """
 
     def __init__(self, model: GraspNeRF, train_iter: Iterator,
@@ -224,12 +269,17 @@ class Trainer:
                  save_interval: int = 1000, lr_cfg: Optional[dict] = None,
                  key_metric: str = "loss_vgn", log_every: int = 50,
                  seed: int = 0, tensorboard: bool = True,
-                 val_image_dir: Optional[str] = None, device=None):
+                 val_image_dir: Optional[str] = None, device=None,
+                 mesh: Optional[Mesh] = None):
         self.model = model
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.rank == 0
+        self.split = None if mesh is None else mesh.split
+        model.nr_net.space = self.split
         self.train_iter = train_iter
-        self.val_batches = [to_device(b, self.device)
-                            for b in (val_batches or [])]
+        self.val_batches = self._shared([to_device(b, self.device)
+                                         for b in (val_batches or [])])
         self.workdir = workdir
         self.total_steps = total_steps
         self.val_interval = val_interval
@@ -243,7 +293,7 @@ class Trainer:
         self.ckpt = CheckpointManager(os.path.join(workdir, "ckpt"))
         self.log_path = os.path.join(workdir, "metrics.jsonl")
         self.tb = None
-        if tensorboard:
+        if tensorboard and self.lead:
             try:   # the reference logs through SummaryWriter too
                 from torch.utils.tensorboard import SummaryWriter
                 self.tb = SummaryWriter(os.path.join(workdir, "tb"))
@@ -251,6 +301,8 @@ class Trainer:
                 self.tb = None
 
     def _log(self, record: Dict[str, Any]):
+        if not self.lead:
+            return
         rec = {k: (float(v) if isinstance(v, torch.Tensor) else v)
                for k, v in record.items()}
         with open(self.log_path, "a") as f:
@@ -261,6 +313,21 @@ class Trainer:
                 if isinstance(v, float):
                     self.tb.add_scalar(prefix + k, v, rec["step"])
 
+    def _shared(self, tree):
+        """tree, or on a space group its first rank's tree (the others'
+        are not read)."""
+        if self.split is None:
+            return tree
+        return self.split.broadcast(tree if self.split.index == 0 else None,
+                                    self.device)
+
+    def _next_batch(self):
+        """The next scene batch on the device; on a space group, its first
+        rank's (only that rank reads train_iter)."""
+        if self.split is not None and self.split.index != 0:
+            return self._shared(None)
+        return self._shared(to_device(next(self.train_iter), self.device))
+
     def _pop_data_wait(self) -> Optional[float]:
         pop = getattr(self.train_iter, "pop_data_wait", None)
         return pop() if pop is not None else None
@@ -268,21 +335,26 @@ class Trainer:
     def restore(self) -> Tuple[TrainState, int, float]:
         """(train state, the step to start at, best key metric): the model
         and Adam from `latest` when there is a checkpoint, else as they
-        are, at step 0."""
+        are, at step 0; on a mesh, the parameters rank 0's."""
         state = create_train_state(self.model, self.lr_cfg, self.device)
         # onto the CPU first: load_state_dict copies the model's tensors and
         # Adam's moments to the parameters' device and leaves Adam's step
         # counts on the CPU, where Adam keeps them
         ckpt = self.ckpt.restore("cpu")
-        if ckpt is None:
-            return state, 0, math.inf
-        state.model.load_state_dict(ckpt["model"])
-        state.optimizer.load_state_dict(ckpt["optimizer"])
-        state.step = adam_updates(state.optimizer)
-        return state, ckpt["step"], ckpt["best"]
+        start, best = 0, math.inf
+        if ckpt is not None:
+            state.model.load_state_dict(ckpt["model"])
+            state.optimizer.load_state_dict(ckpt["optimizer"])
+            state.step = adam_updates(state.optimizer)
+            start, best = ckpt["step"], ckpt["best"]
+        if self.mesh is not None:
+            replicate(state.model)
+        return state, start, best
 
     def _save(self, state: TrainState, step: int, best: float,
               key_metric: Optional[float] = None) -> float:
+        if not self.lead:
+            return best
         return self.ckpt.save({"model": state.model.state_dict(),
                                "optimizer": state.optimizer.state_dict()},
                               step, key_metric=key_metric, best=best)
@@ -319,7 +391,7 @@ class Trainer:
                 outputs = state.model(data, train=False)
             key = ("pixel_colors_nr_fine" if "pixel_colors_nr_fine" in outputs
                    else "pixel_colors_nr")
-            if key not in outputs:
+            if key not in outputs or not self.lead:
                 return
             pred = outputs[key].reshape(len(ys), len(xs), 3)
             gt = que["imgs"][0][ys][:, xs]
@@ -327,41 +399,58 @@ class Trainer:
         except Exception as e:   # a failed dump must never stop training
             self._log({"step": step, "val_image_error": repr(e)})
 
+    def _run_config(self, state: TrainState, batch, n_scenes: int,
+                    start_step: int, steps: int) -> Dict[str, Any]:
+        mesh = self.mesh
+        cuda = self.device.type == "cuda"
+        return {"run_config": True, "git_sha": git_sha(),
+                "torch": torch.__version__, "cuda": torch.version.cuda,
+                "device": (torch.cuda.get_device_name(self.device)
+                           if cuda else str(self.device)),
+                "compute_dtype": state.model.nr_net.compute_dtype,
+                "use_kernels": state.model.nr_net.use_kernels,
+                "mesh": None if mesh is None else mesh.shape,
+                "n_devices": 1 if mesh is None else mesh.size,
+                "dist_backend": (torch.distributed.get_backend()
+                                 if torch.distributed.is_initialized()
+                                 else None),
+                "scene_batch": True, "n_scenes": n_scenes,
+                "n_rays": batch["data"]["que"]["coords"].shape[2],
+                "volume_res": batch["sdf_gt"].shape[-1],
+                "img_hw": list(batch["data"]["ref"]["imgs"].shape[-3:-1]),
+                "start_step": start_step, "seed": self.seed,
+                "total_steps": steps}
+
     def run(self, max_steps: Optional[int] = None) -> TrainState:
-        host_batch = next(self.train_iter)
-        batch = to_device(host_batch, self.device)
+        batch = self._next_batch()
         state, start_step, best = self.restore()
         steps = max_steps or self.total_steps
-        n_scenes = host_batch["sdf_gt"].shape[0]
-        n_rays = host_batch["data"]["que"]["coords"].shape[2]
-        res = host_batch["sdf_gt"].shape[-1]
-        cuda = self.device.type == "cuda"
-        self._log({"run_config": True, "git_sha": git_sha(),
-                   "torch": torch.__version__, "cuda": torch.version.cuda,
-                   "device": (torch.cuda.get_device_name(self.device)
-                              if cuda else str(self.device)),
-                   "compute_dtype": "float32",
-                   "use_kernels": state.model.nr_net.use_kernels,
-                   "scene_batch": True, "n_scenes": n_scenes,
-                   "n_rays": n_rays, "volume_res": res,
-                   "img_hw": list(host_batch["data"]["ref"]["imgs"]
-                                  .shape[-3:-1]),
-                   "start_step": start_step, "seed": self.seed,
-                   "total_steps": steps})
+        n_local = batch["sdf_gt"].shape[0]
+        scenes = (range(n_local) if self.mesh is None
+                  else scene_indices(self.mesh, n_local))
+        n_scenes = n_local * (1 if self.mesh is None else self.mesh.n_data)
+        n_rays = batch["data"]["que"]["coords"].shape[2]
+        res = batch["sdf_gt"].shape[-1]
+        self._log(self._run_config(state, batch, n_scenes, start_step,
+                                   steps))
         loss_fn = make_batched_loss_fn(state.model)
-        gen = torch.Generator(device=self.device)
         self._pop_data_wait()
         t0 = time.perf_counter()
         for step in range(start_step, steps):
-            gen.manual_seed(step_seed(self.seed, step))
-            total, metrics = loss_fn(batch, gen)
-            grads = gradients(state, total)
+            metrics, grads = mesh_gradients(
+                state, loss_fn, batch,
+                scene_generators(self.seed, step, scenes, self.device),
+                self.mesh)
             # the next batch, fetched and copied while the card runs the
             # backward; the update below waits for the card
-            batch = to_device(next(self.train_iter), self.device)
+            batch = self._next_batch()
             finite = apply_gradients(state, grads)
             if (step + 1) % self.log_every == 0:
-                rec = {k: float(v.detach()) for k, v in metrics.items()}
+                names = list(metrics)
+                values = torch.stack([metrics[k].detach() for k in names])
+                if self.mesh is not None:
+                    all_mean([values])
+                rec = dict(zip(names, values.tolist()))
                 rec["nonfinite_grad"] = 0.0 if finite else 1.0
                 sec = (time.perf_counter() - t0) / self.log_every
                 rec = {"step": step + 1, "sec_per_step": sec,

@@ -58,6 +58,7 @@ from ref_harness import rand_cameras
 from test_fused_gather import _mk
 from test_torch_models import (V, _fuse_inputs, graspnerf_params,
                                read_bf16_pack, sub)
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 BF = torch.bfloat16
 JBF = jnp.bfloat16
@@ -66,15 +67,6 @@ RN, DN, FDN, RES = 8, 8, 8, 8
 CFG = {"depth_sample_num": DN, "fine_depth_sample_num": FDN,
        "volume_resolution": RES, "use_depth_loss": False}
 FUSE_OUT = ("feat_const", "num_valid", "x", "vis")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread (see test_torch_loop.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def ulp(scale: float) -> float:

@@ -36,21 +36,13 @@ from graspnerf_tpu_torch.ops.view_fuse import view_fuse
 from test_torch_bf16 import _fuse_weights_jax, f32, ulp
 from test_torch_models import V, _fuse_inputs, graspnerf_params, sub
 from test_torch_render import _params
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 BF = torch.bfloat16
 JBF = jnp.bfloat16
 FUSE_ULPS = 4
 # XLA's CPU compile at LLVM -O0: the same HLO, 40 % less compile time
 FAST = {"xla_backend_optimization_level": 0}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread (see test_torch_loop.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def within_ulps(got, want, ulps, what=""):

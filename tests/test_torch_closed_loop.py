@@ -63,6 +63,7 @@ from graspnerf_tpu_torch.sim.transform import Rotation, Transform
 from graspnerf_tpu_torch.sim.world import AnalyticWorld, SimWorld
 
 from test_torch_models import graspnerf_params
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 # scripts/sim_grasp.py --small: 96 x 128 views, a 16^3 volume, threshold 0.5
@@ -72,15 +73,6 @@ PLANNER_ATOL = 1e-4
 POSE_ATOL = 1e-5
 POSE_COLUMNS = ("qx", "qy", "qz", "qw", "x", "y", "z", "width")
 TIMING_COLUMNS = ("scene_id", "integration_time", "planning_time")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread (the parallel test workers share the cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

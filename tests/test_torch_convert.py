@@ -23,20 +23,12 @@ from graspnerf_tpu_torch.convert import (convert_reference_state_dict,
 from graspnerf_tpu_torch.train.checkpoint import load_params
 
 from test_torch_models import graspnerf_params
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 DEAD = {"nr_net.init_net.bn.num_batches_tracked": torch.tensor(7),
         "vgn_net.conv1.running_mean": torch.zeros(16)}
 # torch layout of a flax kernel: the inverse of JAX's _to_flax
 TO_TORCH = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread (see test_torch_loop.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def reference_state_dict(params):

@@ -71,6 +71,7 @@ import torch
 from graspnerf_tpu.ops.fused_gather import (fused_epipolar_gather,
                                             pack_feature_maps)
 from graspnerf_tpu_torch.ops import epipolar_gather as EG
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 SRC = (pathlib.Path(EG.__file__).resolve().parents[1] / "csrc"
        / "epipolar_gather.cu").read_text()
@@ -87,15 +88,6 @@ V, H, W, C, P = 2, 64, 96, 8, 333
 FH, FW = H // 4, W // 4
 F32 = np.float32
 BF16_ULP_SHARE, JAX_ULPS = 5e-3, 2
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread (see test_torch_loop.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------- the model

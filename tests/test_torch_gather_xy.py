@@ -36,6 +36,7 @@ import torch
 from graspnerf_tpu.ops.fused_gather import (fused_epipolar_gather,
                                             pack_feature_maps)
 from graspnerf_tpu_torch.ops import epipolar_gather as EG
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 V, H, W, C, P = 2, 64, 96, 8, 400
 FH, FW = H // 4, W // 4
@@ -43,15 +44,6 @@ F32 = np.float32
 JAX_RTOL, AUTOGRAD_RTOL = 1e-5, 1e-6
 KINK_ULPS = 8
 LAYOUTS = ("random", "border", "invalid")   # and "grid", at kinks apart
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread (see test_torch_loop.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def layout(name, rng):

@@ -34,19 +34,11 @@ from graspnerf_tpu_torch.data import VGNSynDataset, png, to_device
 from graspnerf_tpu_torch.data.database import VGNSynDatabase
 from graspnerf_tpu_torch.data.generate import (executed_grasp_labels,
                                                generate)
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SDF_ATOL = 1e-5
 SMALL = ["--height", "72", "--width", "96", "--grasp-candidates", "8"]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread (see test_torch_loop.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

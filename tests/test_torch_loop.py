@@ -41,6 +41,7 @@ from graspnerf_tpu_torch.train import profiling as TP
 from graspnerf_tpu_torch.train.trainer import scene
 
 from test_torch_models import graspnerf_params
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CFG = dict(cli.SMALL_RENDERER)
@@ -49,17 +50,6 @@ SHAPE = dict(cli.SMALL_SHAPE, resolution=CFG["volume_resolution"],
 LOG_KEYS = {"step", "sec_per_step", "scenes_per_s", "rays_per_s",
             "tsdf_queries_per_s", "data_wait_per_step", "total",
             "nonfinite_grad"}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: at these shapes it is as fast as many, and it
-    keeps the parallel test workers from oversubscribing the shared cores
-    (each torch op's threads spin while they wait)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -102,16 +92,20 @@ def records(workdir):
 
 
 def test_batched_loss_is_mean_of_scenes(scenes):
-    """S = 2: every loss is the mean of the two single-scene losses with
-    the same generator sequence, and so is every parameter's gradient."""
+    """S = 2: every loss is the mean of the two single-scene losses, each
+    scene drawing from its own generator, and so is every parameter's
+    gradient; scene 0's draws are those of a one-scene batch."""
     model = TT.create_train_state(make_model(), device="cpu").model
     params = list(model.parameters())
     batch = to_device(collate_scenes(scenes[:2]), "cpu")
     total, ld = TT.make_batched_loss_fn(model)(
-        batch, torch.Generator().manual_seed(3))
+        batch, TT.scene_generators(3, 5, range(2), "cpu"))
     grads = torch.autograd.grad(total, params, allow_unused=True)
-    gen = torch.Generator().manual_seed(3)
-    single = [TT.make_loss_fn(model)(scene(batch, i), gen) for i in range(2)]
+    seeds = [TT.trainer.step_seed(3, 5, i) for i in range(2)]
+    assert seeds[0] == TT.trainer.step_seed(3, 5) != seeds[1]
+    single = [TT.make_loss_fn(model)(scene(batch, i),
+                                     torch.Generator().manual_seed(seeds[i]))
+              for i in range(2)]
     for k in ld:
         want = torch.stack([s[1][k] for s in single]).mean()
         assert torch.equal(ld[k], want), k
@@ -313,6 +307,8 @@ def test_entry_script_trains_bfloat16(tmp_path):
                      "--no-tensorboard", "--compute-dtype", "bfloat16"]) == 0
     recs = records(tmp_path)
     assert recs[0]["run_config"]
+    assert recs[0]["compute_dtype"] == "bfloat16"
+    assert recs[0]["mesh"] is None and recs[0]["n_devices"] == 1
     steps = [r for r in recs if "sec_per_step" in r]
     assert [r["step"] for r in steps] == [1, 2]
     for r in steps:

@@ -5,9 +5,11 @@ deduplicated mesh, `volume_to_mesh`, the PLY file's bytes and the gripper
 wireframe."""
 import numpy as np
 import pytest
+import torch
 
 from graspnerf_tpu.ops import mesh as JM
 from graspnerf_tpu_torch.ops import mesh as TM
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 
 def volumes():

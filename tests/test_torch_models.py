@@ -14,6 +14,7 @@ through the layers of each module; num_valid is a count and is held exactly.
 import functools
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 import torch
@@ -28,6 +29,7 @@ from graspnerf_tpu_torch.ops.view_fuse import (BF16_BIAS_N, BF16_BLOCKS,
                                                PACK_FLOATS, _packed,
                                                pack_weights, pack_weights_bf16,
                                                view_fuse, view_fuse_plain)
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 V, H, W = 6, 64, 96
 

@@ -36,6 +36,7 @@ from graspnerf_tpu_torch.ops.tsdf import grid_points
 from graspnerf_tpu_torch.detect import postprocess as TPP
 
 from ref_harness import rand_cameras
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 T = torch.from_numpy

@@ -17,6 +17,7 @@ from graspnerf_tpu_torch.detect.planner import GraspNeRFPlanner
 
 from ref_harness import rand_cameras
 from test_torch_models import V, H, W, graspnerf_params
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 RES = 16
 QUAL_THRESHOLD = 0.5

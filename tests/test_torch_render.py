@@ -40,6 +40,7 @@ from graspnerf_tpu_torch.ops.view_fuse import view_fuse
 
 from ref_harness import rand_cameras
 from test_torch_models import V, H, W, close, graspnerf_params, sub
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 RN, DN, FDN, RES = 24, 16, 16, 8
 CFG = {"depth_sample_num": DN, "fine_depth_sample_num": FDN,

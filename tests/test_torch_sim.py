@@ -41,19 +41,11 @@ from graspnerf_tpu_torch.sim import simulation as TS
 from graspnerf_tpu_torch.sim import transform as TT
 from graspnerf_tpu_torch.sim.grasp import (Grasp, Label, from_voxel_coordinates,
                                            to_voxel_coordinates)
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUAT_ATOL = 1e-6
 TSDF_ATOL = 1e-5
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread (the parallel test workers share the cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -71,6 +71,7 @@ from test_torch_models import V, H, W, close, sub
 from test_torch_render import (CFG, FDN, FINE_DEPTH_ATOL, FORWARD_ATOL,
                                RENDER_KEYS, RES, RN, _flat, _params, _scene,
                                _torch)
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 N_DEPTH, N_GRASPS = 256, 5

@@ -52,6 +52,7 @@ from test_torch_bf16_grads import FAST
 from test_torch_models import V
 from test_torch_render import RES, RN, _params, _torch
 from test_torch_train import GRAD_FLOOR, KEY, TRAIN_CFG, _batch, _jax_draws
+from _torch_util import one_thread  # noqa: F401  (autouse)
 
 BF = torch.bfloat16
 JBF = jnp.bfloat16
@@ -67,15 +68,6 @@ LOSS_RTOL = 2.0 ** -9
 # bfloat16-minus-float32 gradients at least GRAD_COS_MEDIAN (0.43-0.79
 # measured): a port that trained in float32 reads 0 on both
 GRAD_MOVE_MEDIAN, GRAD_COS_MEDIAN = 0.5, 0.25
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread (see test_torch_loop.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ----------------------------------------------------------- the step
