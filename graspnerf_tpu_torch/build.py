@@ -13,7 +13,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from typing import Dict, Iterable, List
+
+from . import tracing
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -75,6 +78,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
             failed.append(f"--- {name} (rc {proc.returncode})\n{out}")
             continue
         os.replace(tmp, so)   # atomic: a reader never sees half a library
+        tracing.COUNTERS["kernels_built"] += 1
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return reports
@@ -84,11 +88,13 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
+        t0 = time.perf_counter()
         so = _target(name)
         if not os.path.exists(so):
             build([name])
         lib = ctypes.CDLL(so)
         _loaded[name] = lib
+        tracing.COUNTERS["kernel_load_s"] += time.perf_counter() - t0
     return lib
 
 

@@ -14,6 +14,7 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..data.database import BLENDER2OPENCV
 from ..data.png import read_rgb
 from ..models import load_graspnerf, resolve_device
@@ -22,6 +23,9 @@ from .postprocess import (process, nms, extract_candidates,
 
 DEFAULT_BBOX_MIN = np.array([-0.15, -0.15, -0.0503], np.float32)
 VOXEL_SIZE = 0.3 / 40
+# the planning call's spans (tracing.py); encode and volume are the renderer's
+PLAN, UPLOAD, HEAD, HEAD_CNN, HEAD_POST, WAIT, GRASPS = map(tracing.span, (
+    "plan", "upload", "head", "head.cnn", "head.post", "wait", "grasps"))
 
 
 class GraspNeRFPlanner:
@@ -51,8 +55,9 @@ class GraspNeRFPlanner:
         """The renderer's `ref` dict of float32 tensors on the device."""
         def t(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-        return {"imgs": t(images), "poses": t(extrinsics), "Ks": t(Ks),
-                "depth_range": t(depth_range), "bbox3d_min": t(bbox_min)}
+        with UPLOAD:
+            return {"imgs": t(images), "poses": t(extrinsics), "Ks": t(Ks),
+                    "depth_range": t(depth_range), "bbox3d_min": t(bbox_min)}
 
     @torch.no_grad()
     def encode(self, imgs: torch.Tensor):
@@ -70,12 +75,16 @@ class GraspNeRFPlanner:
     def detect(self, vol):
         """Grasp head and post-processing of a TSDF volume [res]^3 ->
         ((qual, rot, width) [1,res,res,res,C], GraspCandidates)."""
-        qual, rot, width = self.model.vgn_net(vol[None, ..., None])
-        high, low = self.tsdf_thres
-        q = process(vol, qual[0, ..., 0], width[0, ..., 0],
-                    tsdf_thres_high=high, tsdf_thres_low=low)
-        cand = extract_candidates(nms(q, self.qual_threshold), rot[0],
-                                  width[0, ..., 0], k=self.max_candidates)
+        with HEAD:
+            with HEAD_CNN:
+                qual, rot, width = self.model.vgn_net(vol[None, ..., None])
+            with HEAD_POST:
+                high, low = self.tsdf_thres
+                q = process(vol, qual[0, ..., 0], width[0, ..., 0],
+                            tsdf_thres_high=high, tsdf_thres_low=low)
+                cand = extract_candidates(nms(q, self.qual_threshold),
+                                          rot[0], width[0, ..., 0],
+                                          k=self.max_candidates)
         return (qual, rot, width), cand
 
     def core(self, images, extrinsics, Ks, depth_range,
@@ -87,23 +96,26 @@ class GraspNeRFPlanner:
         if h % 32 or w % 32:
             raise ValueError(f"image size {h}x{w} is not a multiple of 32")
         ref = self.scene(images, extrinsics, Ks, depth_range, bbox_min)
-        t0 = time.time()
+        t0 = time.perf_counter()
         img_feats, ray_feats = self.encode(ref["imgs"])
         vol, _, cand = self.volume(ref, img_feats, ray_feats)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return vol, cand, time.time() - t0
+        with WAIT:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return vol, cand, time.perf_counter() - t0
 
     def __call__(self, images, extrinsics, Ks, depth_range=None,
                  round_idx: int = 0, n_grasp: int = 0):
         """Full planning call: (grasps [(Transform, width)], scores,
         planning seconds), shuffled with the reference's seed."""
-        if depth_range is None:
-            depth_range = np.tile(np.array([[0.2, 0.8]], np.float32),
-                                  (images.shape[0], 1))
-        vol, cand, toc = self.core(images, extrinsics, Ks, depth_range)
-        rng = np.random.RandomState(self.seed + round_idx + n_grasp)
-        grasps, scores = candidates_to_grasps(cand, VOXEL_SIZE, rng)
+        with PLAN:
+            if depth_range is None:
+                depth_range = np.tile(np.array([[0.2, 0.8]], np.float32),
+                                      (images.shape[0], 1))
+            vol, cand, toc = self.core(images, extrinsics, Ks, depth_range)
+            with GRASPS:
+                rng = np.random.RandomState(self.seed + round_idx + n_grasp)
+                grasps, scores = candidates_to_grasps(cand, VOXEL_SIZE, rng)
         return grasps, scores, toc
 
 

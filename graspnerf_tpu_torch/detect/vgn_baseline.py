@@ -61,12 +61,12 @@ class VGNPlanner:
 
     def core(self, depth_imgs, Ks, extrinsics):
         """-> (tsdf [res]^3, GraspCandidates, seconds)."""
-        t0 = time.time()
+        t0 = time.perf_counter()
         tsdf = self.fuse(depth_imgs, Ks, extrinsics)
         _, cand = self.detect(tsdf)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return tsdf, cand, time.time() - t0
+        return tsdf, cand, time.perf_counter() - t0
 
     def __call__(self, depth_imgs, Ks, extrinsics, round_idx: int = 0,
                  n_grasp: int = 0):

@@ -31,11 +31,13 @@ with grad enabled, never under `torch.inference_mode()`.
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn as nn
 
+from .. import tracing
 from ..device import resolve_device
 from ..ops import geometry
 from ..ops.epipolar_gather import epipolar_gather, epipolar_gather_plain
@@ -46,6 +48,13 @@ from .dist_decoder import MixtureLogisticsDistDecoder, compute_prob
 from .grasp_head import VGNConvNet
 from .layers import torch_dtype
 from .nn_blocks import ResUNetLight, RayFeatInitNet, VisEncoder
+
+# the spans of the views' encoding and of the SDF volume (tracing.py)
+ENCODE, ENCODE_IMAGE, ENCODE_RAYINIT, ENCODE_VIS = map(tracing.span, (
+    "encode", "encode.image", "encode.rayinit", "encode.vis"))
+VOLUME, VOLUME_PROJECT, VOLUME_GATHER, VOLUME_DECODE, VOLUME_FUSE = map(
+    tracing.span, ("volume", "volume.project", "volume.gather",
+                   "volume.decode", "volume.fuse"))
 
 
 def project_to_views(ref: Dict[str, torch.Tensor], que_pts: torch.Tensor,
@@ -61,20 +70,38 @@ def project_to_views(ref: Dict[str, torch.Tensor], que_pts: torch.Tensor,
     (the dist decoder, renderer.py:146, and the prob embedding,
     aggregator.py:95-96) add in float32, and the gather's backward reads
     that sum. rgb_feats' consumers round it to bfloat16 once
-    (ibrnet.py:212), so its gradients add in bfloat16 in both."""
-    qn, rn, dn, _ = que_pts.shape
-    pts = que_pts.reshape(-1, 3)
-    V, h, w, _ = ref["imgs"].shape
-    xy, depth, valid = geometry.project_points(pts, ref["poses"], ref["Ks"], h, w)
+    (ibrnet.py:212), so its gradients add in bfloat16 in both. Its halves,
+    `project_views` and `gather_views`, are the volume's `volume.project`
+    and `volume.gather` spans."""
+    return gather_views(ref, maps, project_views(ref, que_pts), use_kernels)
+
+
+def project_views(ref: Dict[str, torch.Tensor], que_pts: torch.Tensor):
+    """The projection of `project_to_views`: (que_pts, xy [V,P,2], depth
+    [V,P], valid [V,P]) for the P = qn*rn*dn points."""
+    _, h, w, _ = ref["imgs"].shape
+    xy, depth, valid = geometry.project_points(que_pts.reshape(-1, 3),
+                                               ref["poses"], ref["Ks"], h, w)
     xy = xy.contiguous()   # einsum may hand back a permuted layout
+    return que_pts, xy, depth, valid
+
+
+def gather_views(ref: Dict[str, torch.Tensor], maps, projected,
+                 use_kernels: bool = True):
+    """The rest of `project_to_views` at `project_views`' result: the
+    gather, then the view directions and the dict."""
+    que_pts, xy, depth, valid = projected
+    qn, rn, dn, _ = que_pts.shape
+    V = xy.shape[0]
     gather = epipolar_gather if use_kernels else epipolar_gather_plain
     rgb_feats, prj_ray_feats = gather(*maps, xy, valid)
 
     def r(x):
         return x.reshape(V, qn, rn, dn, -1)
 
-    return {"dir": r(geometry.view_directions(pts, ref["poses"])), "pts": r(xy),
-            "depth": r(depth), "mask": r(valid.to(torch.float32)),
+    dirs = geometry.view_directions(que_pts.reshape(-1, 3), ref["poses"])
+    return {"dir": r(dirs), "pts": r(xy), "depth": r(depth),
+            "mask": r(valid.to(torch.float32)),
             "ray_feats": r(prj_ray_feats), "rgb_feats": r(rgb_feats)}
 
 
@@ -143,9 +170,14 @@ class NeuralRayRenderer(nn.Module):
     def encode_views(self, imgs: torch.Tensor):
         """imgs [V,H,W,3] -> (img_feats, ray_feats), each [V,H/4,W/4,32],
         float32 whatever the compute dtype (renderer.py:133-140)."""
-        img_feats = self.image_encoder(imgs).contiguous()
-        ray_feats = self.vis_encoder(self.init_net(imgs), img_feats)
-        return img_feats.float(), ray_feats.contiguous().float()
+        with ENCODE:
+            with ENCODE_IMAGE:
+                img_feats = self.image_encoder(imgs).contiguous()
+            with ENCODE_RAYINIT:
+                init = self.init_net(imgs)
+            with ENCODE_VIS:
+                ray_feats = self.vis_encoder(init, img_feats)
+            return img_feats.float(), ray_feats.contiguous().float()
 
     def gather_maps(self, imgs, img_feats, ray_feats):
         """The gather's maps, once per scene: the images and feature maps
@@ -249,19 +281,26 @@ class NeuralRayRenderer(nn.Module):
         With a `space` split this rank evaluates its share of the columns
         and the SDF is joined back (renderer.py:229)."""
         res = self.volume_resolution
-        que_pts = volume_query_points(res, self.volume_size, ref["bbox3d_min"])
-        if self.space is not None:
-            que_pts = que_pts[:, self.space.rows(res * res)]
-        if maps is None:
-            maps = self.gather_maps(ref["imgs"], img_feats, ray_feats)
-        prj = project_to_views(ref, que_pts, maps, self.use_kernels)
-        prj = self._predict_ray_prob(self.dist_decoder, prj,
-                                     ref["depth_range"], None)
-        que_dir = que_pts.new_tensor([0.0, 0.0, 1.0]).expand_as(que_pts)
-        sdf = self.agg_net.sdf(prj, que_dir, que_pts)
-        if self.space is not None:
-            sdf = self.space.join(sdf, res * res)
-        return torch.flip(sdf.reshape(res, res, res), [2])
+        with VOLUME:
+            if maps is None:
+                maps = self.gather_maps(ref["imgs"], img_feats, ray_feats)
+            with VOLUME_PROJECT:
+                que_pts = volume_query_points(res, self.volume_size,
+                                              ref["bbox3d_min"])
+                if self.space is not None:
+                    que_pts = que_pts[:, self.space.rows(res * res)]
+                projected = project_views(ref, que_pts)
+            with VOLUME_GATHER:
+                prj = gather_views(ref, maps, projected, self.use_kernels)
+            with VOLUME_DECODE:
+                prj = self._predict_ray_prob(self.dist_decoder, prj,
+                                             ref["depth_range"], None)
+            with VOLUME_FUSE:
+                que_dir = que_pts.new_tensor([0.0, 0.0, 1.0]).expand_as(que_pts)
+                sdf = self.agg_net.sdf(prj, que_dir, que_pts)
+            if self.space is not None:
+                sdf = self.space.join(sdf, res * res)
+            return torch.flip(sdf.reshape(res, res, res), [2])
 
     def predict_mean_for_depth_loss(self, ref, ray_feats,
                                     generator: torch.Generator):
@@ -352,11 +391,14 @@ def load_graspnerf(params: Mapping[str, torch.Tensor], device=None,
     path's ∇sdf takes its own local autograd); with grad enabled its
     outputs are differentiable, for training (`train.create_train_state`).
     Never under `torch.inference_mode()`."""
+    t0 = time.perf_counter()
     device = resolve_device(device)
     float32_on(device)
     model = GraspNeRF(renderer_cfg, use_kernels=use_kernels)
     model.load_state_dict(params, strict=True)
-    return model.to(device).eval()
+    model = model.to(device).eval()
+    tracing.COUNTERS["model_load_s"] += time.perf_counter() - t0
+    return model
 
 
 def float32_on(device: torch.device) -> None:
