@@ -30,6 +30,7 @@ with grad enabled, never under `torch.inference_mode()`.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import time
@@ -186,12 +187,13 @@ class NeuralRayRenderer(nn.Module):
                                self.vis_encoder), split=self.space)
 
     def _encode_views(self, imgs):
-        with ENCODE_IMAGE:
-            img_feats = self.image_encoder(imgs).contiguous()
-        with ENCODE_RAYINIT:
-            init = self.init_net(imgs)
-        with ENCODE_VIS:
-            ray_feats = self.vis_encoder(init, img_feats)
+        with searched_convolutions(imgs.device):
+            with ENCODE_IMAGE:
+                img_feats = self.image_encoder(imgs).contiguous()
+            with ENCODE_RAYINIT:
+                init = self.init_net(imgs)
+            with ENCODE_VIS:
+                ray_feats = self.vis_encoder(init, img_feats)
         return img_feats.float(), ray_feats.contiguous().float()
 
     def gather_maps(self, imgs, img_feats, ray_feats):
@@ -429,6 +431,52 @@ def float32_on(device: torch.device) -> None:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+
+# cuDNN engines its search times a convolution, the first of its
+# heuristic's list; every engine (0) picked as fast on an H100, at more
+# set-up
+CONV_SEARCH_LIMIT = 10
+
+
+@contextlib.contextmanager
+def searched_convolutions(device: torch.device):
+    """Within the block, on a card with autograd off (planning, validation
+    renders), cuDNN picks each convolution's algorithm by timing its
+    engines (`benchmark`, `benchmark_limit`) the first time it meets the
+    convolution, and keeps the fastest, in place of its heuristic's first
+    choice (for two of the encoders' float32 shapes an FFT convolution,
+    18-20x slower than the implicit GEMM picked). The pick is cached for
+    the life of the process, so the search is paid once a shape, by the
+    first eager call; a CUDA graph captured after it finds every pick
+    cached.
+
+    cuDNN caches one plan a convolution key, whatever chose it: a shape
+    another caller ran first would be found there and never timed, and a
+    shape timed here would be run with this pick by every other caller.
+    `deterministic`, part of that key, is set too (the search picks the
+    same engines with it as without), so the block's picks are its own and
+    code outside it keeps cuDNN's heuristic: the grasp head, training, a
+    plain reference in the same process.
+
+    The three flags are process-wide and read as before on the way out;
+    TF32 is not touched. Counts `conv_search_calls`. Elsewhere than on a
+    card nothing changes, nor where autograd records (training): a
+    training step whose forward took the searched picks had gradients up
+    to 2e-3 off the plain float32 reference's, beyond the limit that the
+    benchmark calibrated with both running the heuristic's plans."""
+    if device.type != "cuda" or torch.is_grad_enabled():
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.benchmark_limit, cudnn.deterministic
+    cudnn.benchmark, cudnn.benchmark_limit, cudnn.deterministic = (
+        True, CONV_SEARCH_LIMIT, True)
+    tracing.COUNTERS["conv_search_calls"] += 1
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit, cudnn.deterministic = saved
 
 
 @torch.no_grad()

@@ -36,6 +36,11 @@ Counters (`counters()`), plain process-wide numbers:
   - `kernel_load_s`: seconds in `build.load` (a library's build or load);
   - `model_load_s`: seconds in `models.load_graspnerf`;
   - `graph_captures`: CUDA graphs captured (`graphs.py`);
+  - `conv_search_calls`: calls of the encode's body on a card with
+    autograd off (eager calls and captures, not replays), each run under
+    cuDNN's algorithm search (`models/renderer.py`
+    `searched_convolutions`); only a call that meets a convolution shape
+    first times its algorithms;
 - each kernel wrapper's launch counters (`<wrapper>.launches`,
   `<wrapper>.bf16_launches`), read where they live; a graph replay adds
   the launches its capture counted (`launch_counts`, `add_launches`).
@@ -65,7 +70,8 @@ WRAPPERS = (("ops.view_fuse", "view_fuse"),
 
 COUNTERS: Dict[str, float] = {"host_syncs": 0, "graph_replays": 0,
                               "kernels_built": 0, "kernel_load_s": 0.0,
-                              "model_load_s": 0.0, "graph_captures": 0}
+                              "model_load_s": 0.0, "graph_captures": 0,
+                              "conv_search_calls": 0}
 PER_CALL = ("host_syncs", "graph_replays")
 
 

@@ -8,9 +8,7 @@ machine, which has no JAX, run them without tests/conftest.py:
 `python3 -m pytest --noconftest tests/test_torch_graphs.py -m card`): the
 planner at the benchmark's size and seeded weights, replayed against its
 own stage bodies called eagerly. No JAX here."""
-import json
 import math
-import os
 
 import numpy as np
 import pytest
@@ -22,12 +20,11 @@ from graspnerf_tpu_torch.detect.postprocess import GraspCandidates
 from graspnerf_tpu_torch.models import ibrnet, renderer
 from graspnerf_tpu_torch.ops import image, interpolate
 
-from _torch_util import one_thread  # noqa: F401  (autouse)
+from _torch_util import card, one_thread  # noqa: F401  (fixtures)
+from _torch_util import seeded_planner
 from torch.utils._pytree import tree_flatten
 
 CPU = torch.device("cpu")
-CONFIGS = os.path.join(os.path.dirname(__file__), os.pardir, "bench_port",
-                       "configs")
 
 
 # ------------------------------------------------------- cached constants
@@ -259,30 +256,10 @@ def test_captures_on_the_second_call_with_one_key(as_if_on_a_card):
 
 # ------------------------------------------------------------- on the card
 
-@pytest.fixture
-def card():
-    """The CUDA card, decided here and never at import; skips without one."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda", 0)
-
-
 @pytest.fixture(scope="module")
 def pool():
     from bench_port import scenes
     return scenes.plan_pool(7, 3, 6, 288, 512, [0.2, 0.8], CPU)
-
-
-def seeded_planner(device, config="graspnerf-fp32"):
-    from bench_port import weights
-    from bench_port.drivers import common
-    from graspnerf_tpu_torch.detect.planner import GraspNeRFPlanner
-    with open(os.path.join(CONFIGS, config + ".json")) as f:
-        config = json.load(f)
-    common.build_kernels(device)
-    params = weights.seeded(common.reference_cfg(config), 11, device)
-    return GraspNeRFPlanner(params, device, common.renderer_cfg(config),
-                            qual_threshold=0.5)
 
 
 def stages(planner, s):
