@@ -380,9 +380,11 @@ constexpr int kSplit = 8;               // chunks of a work item, at most
 // instruction copies about two entries); 0 the same through registers; 2 a
 // TMA bulk copy a row, a thread an entry
 constexpr int kRowCopy = 1;
-// the float32 instance takes the block-synchronous pull (`sync_pull`),
-// its lists whole (false: the pipelined pull, an ablation)
-constexpr bool kSyncPullF32 = true;
+// the pull an instance takes: the pipelined one for bfloat16 upstream
+// gradients; for float32 the block-synchronous one (`sync_pull`), its lists
+// whole
+template <typename GI>
+constexpr bool kPipelined = sizeof(GI) == 2;
 constexpr int kMaxC = 32;               // channels: a lane each
 constexpr int kIndexWarps = 8;
 constexpr int kIndexThreads = 32 * kIndexWarps;
@@ -391,12 +393,6 @@ constexpr int kSpan = kIndexWarps * kRounds * 32;   // points of an index block
 constexpr int kMaxTiles = 4096;         // the index's per-warp histograms
 constexpr int kMaxOrderedTiles = 1024;  // longest list first up to this many
 constexpr int kScanBatch = 16;          // the scan's loads in flight a thread
-// what a call launches (switches for tools/gather_variants.py's probes)
-constexpr bool kRunIndex = true, kRunPull = true;
-// SM cycles of the pull's roles, of its first kStampBlocks blocks
-// (tools/gather_variants.py)
-constexpr bool kStamps = false;
-constexpr int kStampBlocks = 128;
 
 static_assert(kTileY % kWarpY == 0 && kTileX % kWarpX == 0, "warp cells");
 static_assert(kChunk % 32 == 0 && kChunk <= 256, "chunk size");
@@ -404,14 +400,6 @@ static_assert(kKeys < 256, "anchor keys are 8 bits");
 static_assert(kIndexWarps >= 4, "the last index block's four tile arrays");
 static_assert(kRowStages >= 1 && kMetaStages >= kRowStages, "rings");
 static_assert(kChunk <= kSumThreads, "a summing thread an entry (TMA)");
-
-// kStamps: per block, SM cycles of its first summing warp waiting for a
-// chunk's rows, summing chunks, finishing work items, waiting for the next
-// chunk's header, waiting for its row stage to be free (the other summing
-// warps) and starting its row copies; of its producer warp waiting for a
-// free meta stage and sorting a chunk (its entries' loads land in whichever
-// part first reads them); chunks and work items.
-__device__ long long g_stamps[kStampBlocks][10];
 
 // A point's anchor cell (its (x0, y0) tap) on the quarter-res map, the tap
 // steps (0 at a clamped border) and the weights: `quarter_point`'s, so the
@@ -796,7 +784,6 @@ index_kernel(const float* __restrict__ xy,
   if (!last) return;
   // entries a work item of the pipelined pull takes at most; the
   // block-synchronous pull's lists stay whole
-  constexpr bool kPipelined = sizeof(GI) == 2 || !kSyncPullF32;
   constexpr int kRange = kSplit * kChunk;
   // The view's last block: per tile, the exclusive sum over chunks (in
   // place) and its total, then the exclusive sum of the totals.
@@ -835,7 +822,7 @@ index_kernel(const float* __restrict__ xy,
         r += m > n || (m == n && u < t);
       }
     }
-    if constexpr (kPipelined) {
+    if constexpr (kPipelined<GI>) {
       by_pos[r] = t;
       ranges[r] = max(1, (n + kRange - 1) / kRange);
       x.tile_tickets[v * x.tiles + t] = 0;   // for the pull's split lists
@@ -844,7 +831,7 @@ index_kernel(const float* __restrict__ xy,
       item[r] = make_int4(t, begin, begin + n, 1 << 16);
     }
   }
-  if constexpr (!kPipelined) {
+  if constexpr (!kPipelined<GI>) {
     if (threadIdx.x == 0) x.nitems[v] = x.tiles;
     return;
   }
@@ -861,9 +848,8 @@ index_kernel(const float* __restrict__ xy,
   }
 }
 
-// A chunk's record of an entry, in its meta stage: the weights its pull
-// reads (`pull_entry`: wx, owx, wy, owy; `pull_entry_bf16`: the 2 x 2
-// window's folded weights), where its rows start in the row stage (d_rgb's
+// A chunk's record of an entry, in its meta stage: the 2 x 2 window's folded
+// weights (`pull_entry_bf16`), where its rows start in the row stage (d_rgb's
 // | tap steps and mask << 16, d_ray's).
 struct __align__(16) Record {
   float4 w;
@@ -893,17 +879,17 @@ struct __align__(16) Record {
 // sorts); then each waits on `meta_full` and `rows_full`, walks the (kWarpY
 // + 1) x (kWarpX + 1) anchor cells whose taps can reach its cells, in
 // row-major order, each segment in list order, adds each entry's
-// contributions to the cells its taps land on (`pull_entry`), and arrives
-// on `rows_empty` and `meta_empty` (which the producer waits on before it
-// fills the meta stage again). After the item's last chunk the summing
-// warps write each cell once; a range of a split list writes its partial
-// sums, and the range whose ticket comes last adds the ranges' partials in
-// range order (0, 1, ...) and writes the cells. So a cell sums range by
-// range, chunk by chunk, its four anchor cells (y-1,x-1), (y-1,x), (y,x-1),
-// (y,x) in turn, each in list order: a fixed order, the same whichever
-// range comes last. GI and GR are the upstream gradients' types (d_rgb,
-// d_ray), O the maps' gradients' (float, or bf16: the bfloat16 instance,
-// `pull_entry_bf16`).
+// contributions to the cells its taps land on (`pull_entry_bf16`), and
+// arrives on `rows_empty` and `meta_empty` (which the producer waits on
+// before it fills the meta stage again). After the item's last chunk the
+// summing warps write each cell once; a range of a split list writes its
+// partial sums, and the range whose ticket comes last adds the ranges'
+// partials in range order (0, 1, ...) and writes the cells. So a cell sums
+// range by range, chunk by chunk, its four anchor cells (y-1,x-1), (y-1,x),
+// (y,x-1), (y,x) in turn, each in list order: a fixed order, the same
+// whichever range comes last. The bfloat16 instance takes it (`kPipelined`): GI and
+// GR are the upstream gradients' types (d_rgb, d_ray), O the maps'
+// gradients'.
 // Adds an entry to the kWarpY x kWarpX cells a warp owns, from anchor (ar,
 // ac) of their (kWarpY + 1) x (kWarpX + 1) (constants once unrolled): the
 // cell kY rows below and kX columns right of the anchor gets, in `splat`'s
@@ -911,7 +897,7 @@ struct __align__(16) Record {
 // then bottom), times the column weight of each column tap that does (x0,
 // then x1). At a clamped border both taps of a pair land on one cell and
 // both are added.
-template <int WY = kWarpY, int WX = kWarpX>
+template <int WY, int WX>
 __device__ __forceinline__ void pull_entry(float ai[WY][WX], float ar[WY][WX],
                                            int kAr, int kAc, float gi,
                                            float gr, float4 q, int ddy,
@@ -1121,13 +1107,6 @@ __device__ __forceinline__ void produce(unsigned char* smem,
   constexpr int kR = kChunk / 32;   // entries a lane
   const int lane = threadIdx.x & 31;
   int* hist = reinterpret_cast<int*>(smem + S::kHist);
-  long long stamps[2] = {0, 0}, stamp = kStamps ? clock64() : 0;
-#define PSTAMP(i)                         \
-  if (kStamps) {                          \
-    const long long now = clock64();      \
-    stamps[i] += now - stamp;             \
-    stamp = now;                          \
-  }
   // the block's work item: item i of view v
   const int v = blockIdx.x % V, i = blockIdx.x / V;
   const int4 item = x.items[static_cast<size_t>(v) * x.item_cap + i];
@@ -1157,7 +1136,6 @@ __device__ __forceinline__ void produce(unsigned char* smem,
         ent[r] = 32 * r + lane < n ? buf[q % 2 * kChunk + 32 * r + lane]
                                    : make_int4(0, 0, 0, 0);
       ring_wait(meta_empty, kMetaStages, q, true);
-      PSTAMP(0);
       unsigned char* meta = smem + S::kMeta + q % kMetaStages * S::kMetaStage;
       const char** jobs = reinterpret_cast<const char**>(meta + S::kJobs);
       int* job_blocks = reinterpret_cast<int*>(meta + S::kJobBlocks);
@@ -1231,13 +1209,9 @@ __device__ __forceinline__ void produce(unsigned char* smem,
                       wy = __int_as_float(ent[r].w);
           const float owx = 1.0f - wx, owy = 1.0f - wy;
           Record rec;
-          if constexpr (sizeof(GI) == 2) {   // the bfloat16 window
-            const float c0 = ent[r].y >> 8 & 1 ? owx : owx + wx;
-            const float r0 = ent[r].y >> 9 & 1 ? owy : owy + wy;
-            rec.w = make_float4(r0 * c0, r0 * wx, wy * c0, wy * wx);
-          } else {
-            rec.w = make_float4(wx, owx, wy, owy);
-          }
+          const float c0 = ent[r].y >> 8 & 1 ? owx : owx + wx;
+          const float r0 = ent[r].y >> 9 & 1 ? owy : owy + wy;
+          rec.w = make_float4(r0 * c0, r0 * wx, wy * c0, wy * wx);
           // where the rows start in a row stage
           const int e = 32 * r + lane;
           const size_t p = vp + (ent[r].x & 0x7fffffff);
@@ -1248,7 +1222,6 @@ __device__ __forceinline__ void produce(unsigned char* smem,
         }
       __syncwarp();
       if (lane == 0) bar_arrive(meta_full + q % kMetaStages);
-      PSTAMP(1);
       if (last) break;
     }
   }
@@ -1259,10 +1232,6 @@ __device__ __forceinline__ void produce(unsigned char* smem,
     unsigned char* meta = smem + S::kMeta + q % kMetaStages * S::kMetaStage;
     reinterpret_cast<Header*>(meta + S::kHdr)->flags = kNoWork;
     bar_arrive(jobs_full + q % kMetaStages);
-  }
-#undef PSTAMP
-  if (kStamps && lane == 0 && blockIdx.x < kStampBlocks) {
-    for (int k = 0; k < 2; ++k) g_stamps[blockIdx.x][6 + k] = stamps[k];
   }
 }
 
@@ -1326,7 +1295,7 @@ __device__ __forceinline__ void copy_rows(unsigned char* rows,
 
 // A summing warp's sums over one anchor cell's segment of the chunk: its
 // records (recs) and rows (rows, the row stage).
-template <typename GI, typename GR, typename O>
+template <typename GI, typename GR>
 __device__ __forceinline__ void pull_segment(
     float ai[kWarpY][kWarpX], float ar[kWarpY][kWarpX], int kAr, int kAc,
     const int* seg, const Record* recs, const unsigned char* rows, int k,
@@ -1344,11 +1313,8 @@ __device__ __forceinline__ void pull_segment(
       gi *= 0.0f;
       gr *= 0.0f;
     }
-    if constexpr (sizeof(O) == 2)
-      pull_entry_bf16(ai, ar, kAr, kAc, gi, gr, q, at.x >> 17 & 1,
-                      at.x >> 16 & 1);
-    else
-      pull_entry(ai, ar, kAr, kAc, gi, gr, q, at.x >> 17 & 1, at.x >> 16 & 1);
+    pull_entry_bf16(ai, ar, kAr, kAc, gi, gr, q, at.x >> 17 & 1,
+                    at.x >> 16 & 1);
   }
 }
 
@@ -1406,10 +1372,9 @@ __device__ __forceinline__ void finish(
       }
   }
   // The NaN path, for a view where an invalid point has a non-finite
-  // upstream value (its g * 0 is NaN): every cell that such a point's taps
-  // reach gets NaN in those channels (bits set with atomicOr: any order
-  // gives the same bits). In the bfloat16 instance, every cell of the
-  // point's 2 x 2 window (its anchor clipped to [0, fh-2] x [0, fw-2]), as
+  // upstream value (its g * 0 is NaN): every cell of such a point's 2 x 2
+  // window (its anchor clipped to [0, fh-2] x [0, fw-2]) gets NaN in those
+  // channels (bits set with atomicOr: any order gives the same bits), as
   // `_feg_bwd` multiplies g * 0 by the zero weights too.
   if (h.nan) {
     const size_t vp = static_cast<size_t>(h.v) * P;
@@ -1418,11 +1383,9 @@ __device__ __forceinline__ void finish(
     for (int p = t; p < P; p += kSumThreads) {
       if (valid[vp + p]) continue;
       Anchor a = anchor_of(normalised(xy + 2 * vp, p, H, W), 0.0f, fh, fw);
-      if constexpr (sizeof(O) == 2) {   // the window
-        a.y = min(a.y, fh - 2);
-        a.x = min(a.x, fw - 2);
-        a.ddy = a.ddx = 1;
-      }
+      a.y = min(a.y, fh - 2);   // the window
+      a.x = min(a.x, fw - 2);
+      a.ddy = a.ddx = 1;
       unsigned nb[2] = {0u, 0u};
       bool read = false;
       for (int dy = 0; dy <= a.ddy; ++dy)
@@ -1529,14 +1492,6 @@ pull_kernel(const float* __restrict__ xy,
   const int bx = w % (kTileX / kWarpX) * kWarpX;
   unsigned* bits = reinterpret_cast<unsigned*>(smem + S::kBits);
   float ai[kWarpY][kWarpX] = {}, ar[kWarpY][kWarpX] = {};
-  long long stamps[6] = {0, 0, 0, 0, 0, 0}, stamp = kStamps ? clock64() : 0;
-  int chunks = 0;
-#define STAMP(i)                          \
-  if (kStamps) {                          \
-    const long long now = clock64();      \
-    stamps[i] += now - stamp;             \
-    stamp = now;                          \
-  }
   const auto meta_of = [&](int q) {
     return smem + S::kMeta + q % kMetaStages * S::kMetaStage;
   };
@@ -1547,14 +1502,11 @@ pull_kernel(const float* __restrict__ xy,
   // copies started
   const auto next = [&](int q) {
     ring_wait(jobs_full, kMetaStages, q, false);
-    STAMP(3);
     const Header h =
         *reinterpret_cast<const Header*>(meta_of(q) + S::kHdr);
     if (!(h.flags & kNoWork)) {
       ring_wait(rows_empty, kRowStages, q, true);
-      STAMP(4);
       copy_rows<GI, GR>(rows_of(q), meta_of(q), h, rows_full + q % kRowStages);
-      STAMP(5);
     }
     return h;
   };
@@ -1564,8 +1516,6 @@ pull_kernel(const float* __restrict__ xy,
     if (kRowStages > 1) h_next = next(q + 1);
     ring_wait(meta_full, kMetaStages, q, false);   // the records
     ring_wait(rows_full, kRowStages, q, false);
-    STAMP(0);
-    ++chunks;
     if (h.flags & kFirstChunk) {
 #pragma unroll
       for (int cy = 0; cy < kWarpY; ++cy)
@@ -1582,26 +1532,19 @@ pull_kernel(const float* __restrict__ xy,
     for (int r = 0; r <= kWarpY; ++r)
 #pragma unroll
       for (int c = 0; c <= kWarpX; ++c)
-        pull_segment<GI, GR, O>(ai, ar, r, c, seg, recs, rows,
-                                (by + r) * (kTileX + 1) + bx + c, lane);
+        pull_segment<GI, GR>(ai, ar, r, c, seg, recs, rows,
+                             (by + r) * (kTileX + 1) + bx + c, lane);
     __syncwarp();
     if (lane == 0) {
       bar_arrive(rows_empty + q % kRowStages);
       bar_arrive(meta_empty + q % kMetaStages);
     }
-    STAMP(1);
     if (kRowStages == 1) h_next = next(q + 1);
     if (h.flags & kLastChunk) {
       finish<kVec>(ai, ar, h, bits, xy, valid, d_rgb, d_ray, x, d_img_feats,
                    d_ray_feats, P, H, W, fh, fw, C);
-      STAMP(2);
     }
     h = h_next;
-  }
-#undef STAMP
-  if (kStamps && t == 0 && blockIdx.x < kStampBlocks) {
-    for (int i = 0; i < 6; ++i) g_stamps[blockIdx.x][i] = stamps[i];
-    g_stamps[blockIdx.x][8] = chunks;
   }
 }
 
@@ -1941,7 +1884,7 @@ static cudaError_t allow_smem() {
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                index_smem);
   for (int vec = 0; vec < 2 && err == cudaSuccess; ++vec) {
-    if constexpr (sizeof(O) == 4 && kSyncPullF32)
+    if constexpr (!kPipelined<GI>)
       err = cudaFuncSetAttribute(
           vec ? sync_pull::pull_kernel<true> : sync_pull::pull_kernel<false>,
           cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1954,11 +1897,6 @@ static cudaError_t allow_smem() {
   }
   if (err == cudaSuccess) done |= 1ULL << dev;
   return err;
-}
-
-// kStamps builds: the stamps of the last call (kStampBlocks x 10 long longs).
-extern "C" int epipolar_gather_backward_stamps(long long* out) {
-  return static_cast<int>(cudaMemcpyFromSymbol(out, g_stamps, sizeof(g_stamps)));
 }
 
 // int32 elements of the backward's scratch for these sizes; -1 where the
@@ -1988,9 +1926,7 @@ extern "C" int epipolar_gather_backward_layout(int V, int P, int fh, int fw,
 
 // CUDA launches of one epipolar_gather_backward call without d_imgs (with
 // it: the same, the caller zeroes d_imgs); the bfloat16 instance's too.
-extern "C" int epipolar_gather_backward_launches() {
-  return 1 + static_cast<int>(kRunIndex) * 2 + static_cast<int>(kRunPull);
-}
+extern "C" int epipolar_gather_backward_launches() { return 4; }
 
 template <typename GI, typename GR, typename O>
 static int backward(const float* xy, const unsigned char* valid,
@@ -2013,34 +1949,29 @@ static int backward(const float* xy, const unsigned char* valid,
   // the count pass's tickets and the flags
   err = cudaMemsetAsync(x.tickets, 0, sizeof(int) * x.zeroed, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (kRunIndex) {
-    const dim3 blocks(x.chunks, V);
-    const size_t smem = sizeof(int) * kIndexWarps * x.tiles;
-    index_kernel<false, GI, GR><<<blocks, kIndexThreads, smem, stream>>>(
-        xy, valid, d_rgb, d_ray, d_imgs, x, P, H, W, fh, fw, C);
-    index_kernel<true, GI, GR><<<blocks, kIndexThreads, smem, stream>>>(
-        xy, valid, d_rgb, d_ray, nullptr, x, P, H, W, fh, fw, C);
-  }
-  if (kRunPull) {
-    // stores of four channels
-    const size_t v4 = 4 * sizeof(O);
-    const bool vec = C % 4 == 0 && aligned(d_img_feats, v4) &&
-                     aligned(d_ray_feats, v4);
-    if constexpr (sizeof(O) == 4 && kSyncPullF32) {   // a block a tile
-      const auto kernel = vec ? sync_pull::pull_kernel<true>
-                              : sync_pull::pull_kernel<false>;
-      kernel<<<dim3(V, x.tiles), sync_pull::kThreads, sync_pull::kSmem,
-               stream>>>(xy, valid, d_rgb, d_ray, x, d_img_feats, d_ray_feats,
-                         P, H, W, fh, fw, C);
-    } else {
-      // a block per work item, the views' i-th items together (longest
-      // first)
-      const auto kernel = vec ? pull_kernel<true, GI, GR, O>
-                              : pull_kernel<false, GI, GR, O>;
-      kernel<<<V * x.item_cap, kPullThreads, PullSmem<GI, GR>::kBytes,
-               stream>>>(xy, valid, d_rgb, d_ray, x, d_img_feats, d_ray_feats,
-                         V, P, H, W, fh, fw, C);
-    }
+  const dim3 blocks(x.chunks, V);
+  const size_t smem = sizeof(int) * kIndexWarps * x.tiles;
+  index_kernel<false, GI, GR><<<blocks, kIndexThreads, smem, stream>>>(
+      xy, valid, d_rgb, d_ray, d_imgs, x, P, H, W, fh, fw, C);
+  index_kernel<true, GI, GR><<<blocks, kIndexThreads, smem, stream>>>(
+      xy, valid, d_rgb, d_ray, nullptr, x, P, H, W, fh, fw, C);
+  // stores of four channels
+  const size_t v4 = 4 * sizeof(O);
+  const bool vec = C % 4 == 0 && aligned(d_img_feats, v4) &&
+                   aligned(d_ray_feats, v4);
+  if constexpr (!kPipelined<GI>) {   // a block a tile
+    const auto kernel = vec ? sync_pull::pull_kernel<true>
+                            : sync_pull::pull_kernel<false>;
+    kernel<<<dim3(V, x.tiles), sync_pull::kThreads, sync_pull::kSmem,
+             stream>>>(xy, valid, d_rgb, d_ray, x, d_img_feats, d_ray_feats, P,
+                       H, W, fh, fw, C);
+  } else {
+    // a block per work item, the views' i-th items together (longest first)
+    const auto kernel = vec ? pull_kernel<true, GI, GR, O>
+                            : pull_kernel<false, GI, GR, O>;
+    kernel<<<V * x.item_cap, kPullThreads, PullSmem<GI, GR>::kBytes,
+             stream>>>(xy, valid, d_rgb, d_ray, x, d_img_feats, d_ray_feats, V,
+                       P, H, W, fh, fw, C);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -2087,7 +2018,7 @@ static int backward_info(int* out) {
     err = cudaFuncGetAttributes(&attr[1], index_kernel<true, GI, GR>);
   int per_sm = 0, smem = 0;
   if (err == cudaSuccess) err = allow_smem<GI, GR, O>();
-  if constexpr (sizeof(O) == 4 && kSyncPullF32) {
+  if constexpr (!kPipelined<GI>) {
     smem = static_cast<int>(sync_pull::kSmem);
     if (err == cudaSuccess)
       err = cudaFuncGetAttributes(&attr[2], sync_pull::pull_kernel<true>);

@@ -24,6 +24,10 @@ once, as an eager call does.
   key captures the stage, after the first has warmed it up, and replays
   the graph for its own outputs; traffic whose key changes on every call
   never pays for a capture it cannot replay. One graph a stage and owner.
+  Those modules (`_Stage.holders`) keep their parameters alive, so
+  whatever lives as long as a parameter does, such as the view fuse's
+  weight pack made for those versions, is alive whenever a replay can read
+  it.
 - Capture: `CUDAGraph.capture_begin` / `capture_end` rather than the
   `torch.cuda.graph` context, which first synchronises and empties the
   allocator's caches: a validation pass between training steps recaptures
@@ -34,9 +38,6 @@ once, as an eager call does.
 - Outputs: a replay hands back clones of the graph's output tensors, never
   the tensors themselves, since a caller may keep a call's outputs across
   later calls.
-- Buffers: a graph keeps alive what its kernels read that a cache could
-  drop: the view fuse's weight packs (`view_fuse._pack_cache`) as they
-  stand after its capture.
 - Counters (`tracing.py`): a replay adds to the kernel wrappers' launch
   counters the launches its capture counted, and counts `graph_replays`;
   a capture counts `graph_captures`.
@@ -51,7 +52,6 @@ import torch.nn as nn
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from . import tracing
-from .ops import view_fuse
 
 _stages = weakref.WeakKeyDictionary()   # owner -> {stage name: _Stage}
 
@@ -123,9 +123,9 @@ class _Stage:
 
 class _Graph:
     """A CUDA graph of fn on static copies of a call's input tensors, with
-    its static outputs, the launches its capture counted, what it holds
-    and the side stream it was captured on. replaced: the stage's graph
-    that this one replaces, if any."""
+    its static outputs, the launches its capture counted and the side
+    stream it was captured on. replaced: the stage's graph that this one
+    replaces, if any."""
 
     def __init__(self, fn: Callable, leaves, spec, key: tuple,
                  replaced: Optional["_Graph"] = None):
@@ -147,7 +147,6 @@ class _Graph:
             finally:
                 self.graph.capture_end()
         main.wait_stream(self.side)
-        self.held = [pack for _, _, pack in view_fuse._pack_cache.values()]
         after = tracing.launch_counts()
         self.launches = {k: n - before[k] for k, n in after.items()}
         tracing.add_launches({k: -n for k, n in self.launches.items()})

@@ -29,6 +29,7 @@ output (:221-227), num_valid stays float32.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Sequence, Tuple
 
 import torch
@@ -76,7 +77,9 @@ PACK_BF16_ELEMS = (sum(k * n for _, _, k, n in BF16_BLOCKS)
 Pair = Tuple[torch.Tensor, torch.Tensor]
 F32, BF16 = torch.float32, torch.bfloat16
 _libs: dict = {}          # dtype -> loaded kernel library
-_pack_cache: dict = {}    # dtype -> (weights, (versions, device), pack)
+# (id of the first weight, dtype, device) -> (weakrefs of the weights,
+# their versions, pack)
+_packs: dict = {}
 
 
 def _weighted_mean_var(x, w):
@@ -229,23 +232,26 @@ _PACKERS = {F32: pack_weights, BF16: pack_weights_bf16}
 
 
 def _packed(weights: Sequence[Pair], device, dtype=F32) -> torch.Tensor:
-    """The `dtype` kernel's weight pack on `device`, kept for the next call,
-    one per dtype: packed again only when a weight is another tensor or was
-    changed in place (its version counter moved), or for another device.
-    The kept tensors cannot be freed, so a new weight never takes an old
-    one's identity."""
-    pack_fn = _PACKERS[dtype]
+    """The `dtype` kernel's weight pack on `device`, one per weight set,
+    dtype and device, kept for the next call: packed again only when a
+    weight is another tensor or was changed in place (its version counter
+    moved). The pack lives as long as its weights: it is dropped when the
+    set's first weight is freed. Inference tensors keep no version counter,
+    so a pack of them could go stale unseen: they are refused."""
     flat = tuple(t for pair in weights for t in pair)
-    if any(t.is_inference() for t in flat):     # they keep no version
-        return pack_fn(weights).to(device)
-    key = (tuple(t._version for t in flat), device)
-    if dtype in _pack_cache:
-        kept, kept_key, pack = _pack_cache[dtype]
-        if (kept_key == key and len(kept) == len(flat)
-                and all(a is b for a, b in zip(kept, flat))):
-            return pack
-    pack = pack_fn(weights).to(device)
-    _pack_cache[dtype] = (flat, key, pack)
+    if any(t.is_inference() for t in flat):
+        raise TypeError("view_fuse: the kernel's weights are inference "
+                        "tensors, which keep no version counter")
+    key = (id(flat[0]), dtype, device)
+    versions = tuple(t._version for t in flat)
+    kept = _packs.get(key)
+    if (kept is not None and kept[1] == versions and len(kept[0]) == len(flat)
+            and all(r() is t for r, t in zip(kept[0], flat))):
+        return kept[2]
+    pack = _PACKERS[dtype](weights).to(device)
+    if kept is None:
+        weakref.finalize(flat[0], _packs.pop, key, None)
+    _packs[key] = (tuple(weakref.ref(t) for t in flat), versions, pack)
     return pack
 
 

@@ -17,25 +17,25 @@ coordinates at the render pass's P = 163,840.
 
 With `--backward`, the same for the backward (`epipolar_gather_backward`
 and `epipolar_gather_backward_bf16`, each build's two instances): the build
-as it is; each entry of BACKWARD_VARIANTS (the pull's rows copied by
-TMA bulk copies or through registers instead of 16-byte cp.async, one or
-three row stages instead of two, two meta stages instead of four, long lists not split or split at other lengths, a block per work
-item instead of the persistent grid, other chunks and warp shapes, ranks
-from shuffles, invalid points kept in the index, the pull's roles in SM
-cycles (`stamps`), and probes that leave out the finiteness check of the
-invalid points, or launch the index passes alone or the pull alone on an
-index built beforehand); and with `--against FILE` that source (an earlier
+as it is; each entry of BACKWARD_VARIANTS (the bfloat16 pull's rows copied
+by TMA bulk copies or through registers instead of 16-byte cp.async, two
+row stages instead of one, two or four meta stages instead of three, long
+lists not split or split at other lengths, other chunks, warp shapes and
+register caps, other index blocks, ranks from shuffles, invalid points
+kept in the index, and a probe that leaves out the finiteness check of
+the invalid points); and with `--against FILE` that source (an earlier
 commit's: a pull, or the atomic design, whose backward adds into zeroed
 outputs). A build nvcc refuses is left out with its log. Every build but
-the probes is held to the plain version (float32 within chip_smoke.py's
+the probe is held to the plain version (float32 within chip_smoke.py's
 atol and rtol, bfloat16 bit-equal but for 1e-3 of the values one ulp
-apart) and its two launches to each other; each build's bare call (all
-its CUDA launches, into preallocated outputs) is timed on random and the
-planner's coordinates at P = 64,000 and on a training batch's coarse-pass
-coordinates at P = 20,480, beside one `zero_` of the two bfloat16 outputs
-(what the atomic design's wrapper adds); the longest tile list and the
-work items are read from the index, and the build's own call is broken
-down by device event (torch.profiler).
+apart) and its two launches to each other, and the builds whose maps'
+gradients differ from the kernel build's are listed; each build's bare
+call (all its CUDA launches, into preallocated outputs) is timed on random
+and the planner's coordinates at P = 64,000 and on a training batch's
+coarse-pass coordinates at P = 20,480, beside one `zero_` of the two
+bfloat16 outputs (what the atomic design's wrapper adds); the longest tile
+list and the work items are read from the index, and the build's own call
+is broken down by device event (torch.profiler).
 
 With `--xy`, the same for the gradient with respect to xy
 (`epipolar_gather_backward_xy` and its bfloat16 instance): the build as it
@@ -171,9 +171,6 @@ BACKWARD_VARIANTS = {
     "warps_2x2": WARPS_2X2 + bwd_sub("kPullMinBlocks", 3, 2),
     "min_blocks_2": bwd_sub("kPullMinBlocks", 3, 2),
     "four_blocks": bwd_sub("kPullMinBlocks", 3, 4),
-    # float32 through the pipelined pull (its lists whole), not the
-    # block-synchronous one
-    "float32_pipelined": bwd_flag("kSyncPullF32", "true", "false"),
     # index blocks of 4 rounds of 32 points a warp: half the chunks the
     # count pass's last block scans
     "index_rounds_4": bwd_sub("kRounds", 2, 4),
@@ -189,13 +186,6 @@ BACKWARD_VARIANTS = {
         "    const bool check = kFill && out && p < P;",
         "    const bool check = false;"]],
     "keep_invalid": bwd_flag("kDropInvalid", "true", "false"),
-    # the pull's roles in SM cycles (clock64 around each wait and phase)
-    "stamps": bwd_flag("kStamps", "false", "true"),
-    # probes: one part of a call alone
-    "probe_index_only": [["kRunIndex = true, kRunPull = true;",
-                          "kRunIndex = true, kRunPull = false;"]],
-    "probe_pull_only": [["kRunIndex = true, kRunPull = true;",
-                         "kRunIndex = false, kRunPull = true;"]],
 }
 
 BWD_CASES = {"random P=64000": ("random", 64000),
@@ -344,35 +334,6 @@ def device_us(fn, calls=5):
         for k in range(calls)) / calls) for i in range(per_call)]
 
 
-def print_stamps(case, lib, launch):
-    """The stamps build's pull, per block: SM cycles of its first summing
-    warp and of its producer warp by part, per chunk, over the blocks that
-    took chunks, and the busiest block."""
-    launch()
-    torch.cuda.synchronize()
-    buf = (ctypes.c_longlong * (128 * 10))()
-    lib.epipolar_gather_backward_stamps.argtypes = [ctypes.c_void_p]
-    build.check(lib.epipolar_gather_backward_stamps(buf), "stamps")
-    rows = [list(buf[10 * b:10 * b + 10]) for b in range(128)]
-    rows = [r for r in rows if r[8] > 0]
-    parts = ("sum warp: wait for rows", "sums", "finish",
-             "wait for next header", "wait for free row stage",
-             "start copies", "producer: wait", "sort")
-    per = {p: sum(r[i] for r in rows) / max(1, sum(r[8] for r in rows))
-           for i, p in enumerate(parts)}
-    busy = max(rows, key=lambda r: r[8]) if rows else None
-    # a summing warp's cycles in the pull, and chunks, over the blocks
-    total = sorted(sum(r[:6]) for r in rows)
-    chunks = sorted(r[8] for r in rows)
-    spread = {"cycles min / median / max": total[::max(1, len(total) // 2)]
-              + total[-1:], "chunks": chunks[::max(1, len(chunks) // 2)]
-              + chunks[-1:]}
-    print(f"{case}: pull stamps over {len(rows)} blocks, SM cycles a chunk "
-          + json.dumps({k: round(v) for k, v in per.items()})
-          + f"; per block {json.dumps(spread)}; the block with most chunks "
-          f"[{', '.join(parts)}, chunks, items]: {busy}")
-
-
 def bwd_check(got, want, scale, instance):
     """Whether a build's maps' gradients match the plain version's:
     float32 within chip_smoke.py's atol and rtol; bfloat16 bit-equal but
@@ -429,18 +390,15 @@ def backward_main(src, against, dev, only=None) -> int:
     runs = [(name, inst) for name, (lib, _, _) in libs.items()
             for inst, (fn, _) in INSTANCES.items() if hasattr(lib, fn)]
     ms = {f"{n} {i}": {case: [] for case in BWD_CASES} for n, i in runs}
-    zero, bad = {}, set()
+    zero, bad, differ = {}, set(), {}
     for case, (coords, P) in BWD_CASES.items():
         ins = bwd_inputs(dev, coords, P)
         shapes = ((V, H, W, 3), (V, H // 4, W // 4, C))
-        # each build's own scratch (its sizes); the pull-only probe reads
-        # the kernel's index
+        # each build's own scratch (its sizes)
         scratch = {name: torch.empty(
             max(0, lib.epipolar_gather_backward_scratch(V, P, H // 4, W // 4))
             if hasattr(lib, "epipolar_gather_backward_scratch") else 0,
             dtype=torch.int32, device=dev) for name, (lib, _, _) in libs.items()}
-        if "probe_pull_only" in scratch:
-            scratch["probe_pull_only"] = scratch["kernel"]
         for inst, (_, dtype) in INSTANCES.items():
             outs = [torch.empty(shapes[0], device=dev)] + [
                 torch.empty(shapes[1], device=dev, dtype=dtype)
@@ -452,6 +410,7 @@ def backward_main(src, against, dev, only=None) -> int:
             scale = epipolar_gather_backward_plain(
                 *shapes, ins[0], ins[1], d_rgb.abs(), ins[3].abs(), False,
                 dtype)[1:]
+            got = {}
             for name, i in runs:
                 if i != inst or name.startswith("probe_"):
                     continue
@@ -469,16 +428,16 @@ def backward_main(src, against, dev, only=None) -> int:
                              or all(torch.equal(a, o) for a, o in
                                     zip(again, outs[1:])))):
                     bad.add(f"{name} {inst}")
-            # the index the pull-only probe reads: the kernel's, built above
+                got[name] = again
+            differ[f"{case} {inst}"] = [
+                n for n, g in got.items() if not all(
+                    torch.equal(a, b) for a, b in zip(g, got["kernel"]))]
             launch = bwd_launcher(lib0, ins, outs, scratch["kernel"], inst)
             launch()
             order = [n for n, i in runs if i == inst]
             for name in order + order[::-1]:     # in turns, then back
                 ms[f"{name} {inst}"][case].append(cuda_ms(bwd_launcher(
                     libs[name][0], ins, outs, scratch[name], inst)))
-            if "stamps" in libs and inst == "bfloat16":   # the pipelined pull
-                print_stamps(f"{case} {inst}", libs["stamps"][0], bwd_launcher(
-                    libs["stamps"][0], ins, outs, scratch["stamps"], inst))
             print(f"{case} {inst}: the kernel build's device events, us: "
                   + json.dumps(device_us(launch)))
             for name in libs:   # the other sources' too
@@ -507,6 +466,8 @@ def backward_main(src, against, dev, only=None) -> int:
     print(f"builds not held to the plain version (float32 within atol "
           f"{BWD_ATOL}, rtol {BWD_RTOL}; bfloat16 one ulp on 1e-3 of the "
           f"values) or whose two launches differ: {sorted(bad)}")
+    print("builds whose maps' gradients differ from the kernel build's: "
+          + json.dumps(differ))
     print(f"bare call ms (CUDA events, mean of 20, two turns), SM clock "
           f"after the run {smi('clocks.sm')}:")
     for key in ms:

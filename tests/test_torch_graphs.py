@@ -358,6 +358,31 @@ def test_syncs_and_replays_a_call(card, pool):
 
 
 @pytest.mark.card
+def test_volume_replay_after_an_eager_render(card, pool):
+    """An eager coarse-plus-fine render pass between the volume graph's
+    capture and its replay packs the fine aggregator's weights as well as
+    the coarse one's: the replay still reads the coarse pack it was
+    captured with."""
+    from graspnerf_tpu_torch.tools.scene import query_rays
+    planner = seeded_planner(card)
+    stages(planner, pool[0])
+    stages(planner, pool[0])                    # capture
+    s = pool[1]
+    que = query_rays(np.random.RandomState(0), s["images"], s["extrinsics"],
+                     s["Ks"], s["depth_range"], 1024)
+    nr = planner.model.nr_net
+    before = tracing.launch_counts()["view_fuse.launches"]
+    with torch.no_grad():
+        ref = planner.scene(s["images"], s["extrinsics"], s["Ks"],
+                            s["depth_range"])
+        nr.render_rays({k: torch.from_numpy(v).to(card)
+                        for k, v in que.items()},
+                       ref, *nr.encode_views(ref["imgs"]))
+    assert tracing.launch_counts()["view_fuse.launches"] == before + 2
+    assert_bit_equal(stages(planner, s), eager(planner, s))
+
+
+@pytest.mark.card
 def test_weight_update_recaptures(card, pool):
     planner = seeded_planner(card)
     stages(planner, pool[0])

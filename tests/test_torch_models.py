@@ -12,6 +12,8 @@ of the values' magnitude per layer. The stated atols allow for that growth
 through the layers of each module; num_valid is a count and is held exactly.
 """
 import functools
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -295,6 +297,39 @@ def test_pack_kept_per_dtype(rng):
         assert again is not first[dt]
         assert torch.equal(bits(again), bits(packer(pairs)))
         assert _packed(pairs, cpu, dt) is again
+
+
+def fuse_linears():
+    """A module of the view fuse's ten Linears and their (weight, bias)
+    pairs, as an aggregator hands them to the wrapper."""
+    module = torch.nn.ModuleList(torch.nn.Linear(i, o) for i, o in LAYER_DIMS)
+    return module, [(m.weight, m.bias) for m in module]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_kept_per_weight_set(dtype):
+    """Two weight sets called in turn, as the coarse and the fine
+    aggregator's are in a render pass, each get their own pack back:
+    neither evicts the other's."""
+    cpu = torch.device("cpu")
+    sets = [fuse_linears()[1] for _ in range(2)]
+    first = [_packed(w, cpu, dtype) for w in sets]
+    assert first[0] is not first[1]
+    for _ in range(3):
+        for w, pack in zip(sets, first):
+            assert _packed(w, cpu, dtype) is pack
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_freed_with_its_weights(dtype):
+    """A pack lives as long as its weights: once their module is dropped,
+    nothing keeps it."""
+    module, weights = fuse_linears()
+    pack = weakref.ref(_packed(weights, torch.device("cpu"), dtype))
+    assert pack() is not None
+    del module, weights
+    gc.collect()
+    assert pack() is None
 
 
 def test_ibrnet_sdf_rgb_match_jax(rng):
