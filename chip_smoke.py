@@ -3,7 +3,8 @@
 NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
 
 1. builds the CUDA kernels from csrc/ (nvcc, all sources at once: the
-   float32 and the bfloat16 view fuse, the gather);
+   float32 and the bfloat16 view fuse, the gather, the fused
+   InstanceNorm);
 2. drives the planner (`GraspNeRFPlanner.core`) at full width -- six
    288 x 512 views, a 40^3 volume, every layer at the shipped widths, seeded
    random weights -- for a few planning calls, counts the kernel launches,
@@ -29,7 +30,7 @@ NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
    processes with the native tracer -- for 12 steps with logging, validation,
    a validation image dump (which must be written) and checkpoints, then resumes a fresh Trainer
    from `latest` for 2 more steps; checks the launches per step and per val
-   batch, that every logged loss is finite and no update was skipped, that
+   batch (and the fused InstanceNorm's 62 a validation forward), that every logged loss is finite and no update was skipped, that
    the restored state equals the saved one bit for bit, and the first loop
    batch's losses and gradients against the plain versions; and prints the
    loop's time per step, its data wait and the pipeline's own scenes/s;
@@ -115,7 +116,15 @@ NVIDIA card: run from the repository root as `python3 chip_smoke.py`.
    each rank's peak memory, and which collectives gloo takes on CUDA
    tensors; (c) the command of (a) at `--mesh 1,2 --dist-backend gloo`,
    its two ranks on the one card, each batch loaded by the first and
-   broadcast to the second (losses against the command without a mesh).
+   broadcast to the second (losses against the command without a mesh);
+19. the fused InstanceNorm (csrc/instance_norm.cu, the encoders' norms with
+   their activation, residual and the next convolution's reflect pad):
+   62 launches a float32 planning call, a render and a forward, none in a
+   train step, 62 a validation forward of the loop; held against the
+   modules' chain at the encoders' four plane shapes (6 views of 288 x
+   512) in each variant they call, within 1e-5 of each output's scale
+   (the sum and the border bit-equal); its registers and spills; timed
+   against the chain, cuDNN's norm alone and its byte bound.
 
 `--profile` adds a torch.profiler breakdown of a planning call, of a
 render and of a train step by stage and by op. It prints a `kernels` JSON
@@ -137,6 +146,7 @@ import numpy as np
 import torch
 
 N_CALLS = 3            # planning calls on the counted main path
+NORMS = 62             # InstanceNorms of one encode (the three encoders)
 SEED = 0
 VIEWS, HEIGHT, WIDTH, RES = 6, 288, 512, 40
 RENDER_RAYS, RENDER_SAMPLES = 4096, 40
@@ -499,6 +509,43 @@ def check_view_fuse(dev, gen, render_args):
             "render_max_abs_err": errs[render]}
 
 
+def check_instance_norm(dev, launches, render, train, loop):
+    """The fused InstanceNorm against the modules' chain at the encoders'
+    four plane shapes, in each variant the encoders call (checked within
+    1e-5 of each output's scale, the sum and the border bit-equal, by
+    tools/instance_norm_timing.py), timed against the chain and against
+    cuDNN's norm alone (`F.instance_norm`, the chain's first op: its
+    `library_ms`). launches: the planner's N_CALLS calls; render, train,
+    loop: those phases' results. Returns its `kernels` row, headed by the
+    first norm's shape (6 x 32 x 144 x 256, bn1)."""
+    from graspnerf_tpu_torch.ops.instance_norm import kernel_info
+    from graspnerf_tpu_torch.tools import instance_norm_timing as timing
+    rows = timing.time_variants(dev)
+    info = kernel_info()
+    log(f"instance_norm_act: the kernel as built {json.dumps(info)}")
+    head = next(r for r in rows if r["variant"] == "bn1")
+    return {"name": "instance_norm_act", "route": "cuda",
+            "source": "graspnerf_tpu_torch/csrc/instance_norm.cu",
+            "replaces": "none: XLA fuses the norms of "
+                        "graspnerf_tpu/models/nn_blocks.py",
+            "launches": launches["instance_norm_act"],
+            "launches_per_call": launches["instance_norm_act"] // N_CALLS,
+            "max_abs_err": max(r["abs_err"] for r in rows),
+            "max_rel_err": max(r["rel_err"] for r in rows),
+            "ms": head["kernel_ms"], "plain_ms": head["chain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes",
+            "library_ms": head["library_ms"],
+            "render_launches": render["norm_launches"]["render"],
+            "forward_launches": render["norm_launches"]["forward"],
+            "train_launches": train["norm_launches"],
+            "train_steps": train["steps"],
+            "loop_launches": loop["norm_launches"],
+            "loop_steps": loop["steps"], **info,
+            "shapes": [{k: r[k] for k in (
+                "shape", "variant", "kernel_ms", "chain_ms", "library_ms",
+                "bound_ms", "roofline_pct", "rel_err")} for r in rows]}
+
+
 def planner_gather_inputs(planner, scene):
     """The gather's inputs on the main path: the scene's images, the maps
     from `encode`, and the volume grid projected into the views."""
@@ -666,6 +713,7 @@ def threshold_of(peaks, what):
 def run_planner(dev):
     from graspnerf_tpu_torch.detect.planner import GraspNeRFPlanner
     from graspnerf_tpu_torch.ops.epipolar_gather import epipolar_gather
+    from graspnerf_tpu_torch.ops.instance_norm import instance_norm_act
     from graspnerf_tpu_torch.ops.view_fuse import view_fuse
     from graspnerf_tpu_torch.tools.scene import synthetic_views
 
@@ -678,15 +726,20 @@ def run_planner(dev):
     kern.qual_threshold = plain.qual_threshold = thr
 
     view_fuse.launches = epipolar_gather.launches = 0
+    instance_norm_act.launches = 0
     wall = []
     for _ in range(N_CALLS):
         vol_k, cand_k, dt = kern.core(images, poses, Ks, dr)
         wall.append(dt)
     launches = {"view_fuse": view_fuse.launches,
-                "epipolar_gather": epipolar_gather.launches}
+                "epipolar_gather": epipolar_gather.launches,
+                "instance_norm_act": instance_norm_act.launches}
     log(f"planner: {N_CALLS} calls, core() seconds {wall}, launches {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
+    check(launches["instance_norm_act"] == NORMS * N_CALLS,
+          f"planner: {launches['instance_norm_act']} fused norms in "
+          f"{N_CALLS} calls, not {NORMS} a call")
 
     vol_p, cand_p, _ = plain.core(images, poses, Ks, dr)
     check(vol_k.shape == (RES,) * 3 and bool(torch.isfinite(vol_k).all()),
@@ -1119,6 +1172,7 @@ def run_render(dev, inputs, iters=10):
     from graspnerf_tpu_torch.models import load_graspnerf
     from graspnerf_tpu_torch.ops import geometry
     from graspnerf_tpu_torch.ops.epipolar_gather import epipolar_gather
+    from graspnerf_tpu_torch.ops.instance_norm import instance_norm_act
     from graspnerf_tpu_torch.ops.view_fuse import view_fuse
 
     sd = render_params()
@@ -1130,22 +1184,27 @@ def run_render(dev, inputs, iters=10):
     data = render_data(inputs, dev)
     ref, que = data["ref"], data["que"]
 
-    launches = {}
+    launches, norms = {}, {}
     with torch.no_grad():
         kern(data)           # first calls: library loads, cuDNN set-up
         for name, fn in (("render", lambda: render_only(data)),
                          ("forward", lambda: kern(data))):
             view_fuse.launches = epipolar_gather.launches = 0
+            instance_norm_act.launches = 0
             out = fn()
             torch.cuda.synchronize()
             launches[name] = {"view_fuse": view_fuse.launches,
                               "epipolar_gather": epipolar_gather.launches}
+            norms[name] = instance_norm_act.launches
         want = plain(data)
-    log(f"render: launches {launches} (NeuralRayRenderer.forward without the "
-        f"volume; GraspNeRF.forward with it)")
+    log(f"render: launches {launches}, fused norms {norms} "
+        f"(NeuralRayRenderer.forward without the volume; GraspNeRF.forward "
+        f"with it)")
     for name, n in (("render", 2), ("forward", 3)):
         check(launches[name] == {"view_fuse": n, "epipolar_gather": n},
               f"{name}: launches {launches[name]}, not {n} of each kernel")
+        check(norms[name] == NORMS, f"{name}: {norms[name]} fused norms, "
+              f"not {NORMS} (one encode)")
     for key, value in out.items():
         for v in flat(value):
             check(v.dtype == torch.bool or bool(torch.isfinite(v).all()),
@@ -1176,8 +1235,8 @@ def run_render(dev, inputs, iters=10):
     stages = (("encode", lambda: knr.encode_views(ref["imgs"])),
               *((k, phases[k]) for k in ("coarse_pass", "fine_sampling",
                                          "fine_pass")))
-    return {"launches": launches, "args": args, "times": times,
-            "stages": stages}
+    return {"launches": launches, "norm_launches": norms, "args": args,
+            "times": times, "stages": stages}
 
 
 # -------------------------------------------------------------- bfloat16
@@ -1742,9 +1801,11 @@ def run_train(dev, iters=10):
     kern, plain, batch = train_states(dev)
     args = compare_train(kern, plain, batch, dev)
 
+    from graspnerf_tpu_torch.ops.instance_norm import instance_norm_act
     step = make_train_step(kern)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     zero_counts()
+    instance_norm_act.launches = 0
     totals = []
     for _ in range(TRAIN_STEPS):
         metrics = step(batch, gen)
@@ -1752,7 +1813,11 @@ def run_train(dev, iters=10):
         totals.append(float(metrics["total"]))
     torch.cuda.synchronize()
     launches = counts()
-    log(f"train: {TRAIN_STEPS} steps, totals {totals}, launches {launches}")
+    norms = instance_norm_act.launches
+    log(f"train: {TRAIN_STEPS} steps, totals {totals}, launches {launches}, "
+        f"fused norms {norms}")
+    # autograd is on in a train step: the encoders keep the modules' chain
+    check(norms == 0, f"train: {norms} fused norms in {TRAIN_STEPS} steps")
     check(all(math.isfinite(t) for t in totals), "train: total not finite")
     for name, n in launches.items():
         check(n == 3 * TRAIN_STEPS, f"train: {name} launched {n} times in "
@@ -1775,8 +1840,9 @@ def run_train(dev, iters=10):
         ("backward", lambda: held.update(
             grads=gradients(kern, held.pop("total")))),
         ("optimizer", lambda: apply_gradients(kern, held.pop("grads"))))
-    return {"launches": launches, "steps": TRAIN_STEPS, "args": args,
-            "times": times, "stages": stages}
+    return {"launches": launches, "norm_launches": norms,
+            "steps": TRAIN_STEPS, "args": args, "times": times,
+            "stages": stages}
 
 
 def run_train_bf16(dev, iters=10):
@@ -1945,6 +2011,7 @@ def run_loop(dev, smi, step_ms):
     from graspnerf_tpu_torch.data import (DatasetFactory, SceneLoader,
                                           SyntheticSceneDataset, host_cores,
                                           native, to_device)
+    from graspnerf_tpu_torch.ops.instance_norm import instance_norm_act
     from graspnerf_tpu_torch.train import create_train_state
     from graspnerf_tpu_torch.train.trainer import scene
     check(native.available(), "loop: the native tracer did not build")
@@ -1965,13 +2032,20 @@ def run_loop(dev, smi, step_ms):
             factory, LOOP_WORKERS, seed=SEED, pin_memory=True) as loader:
         trainer = loop_trainer(dev, FirstBatch(loader), val, workdir)
         zero_counts()
+        instance_norm_act.launches = 0
         t0 = time.perf_counter()
         state = trainer.run(LOOP_STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = counts()
+        norms = instance_norm_act.launches
         log(f"loop: {LOOP_STEPS} steps in {wall:.2f} s wall (worker start "
-            f"included), launches {launches}")
+            f"included), launches {launches}, fused norms {norms}")
+        # the fused norms: none in a train step, one encode's in each
+        # validation forward (its batches and the val image's render)
+        n_val = val_events * (LOOP_VAL_BATCHES + 1)
+        check(norms == NORMS * n_val, f"loop: {norms} fused norms, not "
+              f"{NORMS} in each of {n_val} validation forwards")
         # 3 a step; 3 per val batch and 3 for the val image's render
         fwd = 3 * LOOP_STEPS + val_events * 3 * (LOOP_VAL_BATCHES + 1)
         check(launches == {"view_fuse": fwd, "epipolar_gather": fwd,
@@ -2034,7 +2108,7 @@ def run_loop(dev, smi, step_ms):
         f"threads, os.cpu_count() {os.cpu_count()}; the train phase's "
         f"seeded step median {step_ms:.1f} ms")
     return {"launches": launches, "resumed_launches": resumed_launches,
-            "steps": LOOP_STEPS}
+            "norm_launches": norms, "steps": LOOP_STEPS}
 
 
 def gather_backward_library(args, grads):
@@ -3463,6 +3537,7 @@ def main() -> int:
         row.update(bwd_profile[row["name"]])
     rows_xy = [check_gather_backward_xy(dev, gen, planner, inputs),
                check_gather_backward_xy(dev, gen, planner16, inputs, BF16)]
+    row_norm = check_instance_norm(dev, launches, render, train, loop)
     phases = phase_times(planner, inputs)
     log("phases (median, min, max of 20) " + json.dumps(phases))
     phases16 = phase_times(planner16, inputs)
@@ -3518,7 +3593,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "render_launches", "train_launches", "loop_launches")
-    rows += rows16 + rows_xy
+    rows += rows16 + rows_xy + [row_norm]
     for row in rows:
         check(all(k in row for k in keys), f"{row['name']}: a key is missing")
     log(json.dumps({"kernels": [

@@ -166,9 +166,10 @@ class NeuralRayRenderer(nn.Module):
         # by a Trainer on a mesh: None renders every ray on this process
         self.space = None
         d = self.dtype = torch_dtype(compute_dtype)
-        self.image_encoder = ResUNetLight(3, (1, 2, 6, 4), 32, 16, d)
-        self.init_net = RayFeatInitNet(d)
-        self.vis_encoder = VisEncoder(d)
+        self.image_encoder = ResUNetLight(3, (1, 2, 6, 4), 32, 16, d,
+                                          use_kernels)
+        self.init_net = RayFeatInitNet(d, use_kernels)
+        self.vis_encoder = VisEncoder(d, use_kernels)
         self.dist_decoder = MixtureLogisticsDistDecoder(dtype=d)
         self.agg_net = NeusAggregationNet(init_s=init_s,
                                           use_kernels=use_kernels, dtype=d)

@@ -31,6 +31,10 @@ Counters (`counters()`), plain process-wide numbers:
     debug mode (`torch.cuda.set_sync_debug_mode("warn")`), turned on only
     there and its warnings counted without being shown; 0 on the CPU;
   - `graph_replays`: CUDA graph replays of the stages (`graphs.py`);
+  - `norm_launches`: launches of the fused InstanceNorm
+    (`ops/instance_norm.py`), a replay's captured ones included: what
+    the wrapper's launch counter gained while the root was open
+    (`RECORDED_LAUNCHES`);
 - counted always, one-off costs of set-up:
   - `kernels_built`: libraries that `build.build` compiled in this process;
   - `kernel_load_s`: seconds in `build.load` (a library's build or load);
@@ -66,13 +70,17 @@ SYNC_WARNING = "called a synchronizing CUDA operation"
 WRAPPERS = (("ops.view_fuse", "view_fuse"),
             ("ops.epipolar_gather", "epipolar_gather"),
             ("ops.epipolar_gather", "epipolar_gather_backward"),
-            ("ops.epipolar_gather", "epipolar_gather_backward_xy"))
+            ("ops.epipolar_gather", "epipolar_gather_backward_xy"),
+            ("ops.instance_norm", "instance_norm_act"))
 
 COUNTERS: Dict[str, float] = {"host_syncs": 0, "graph_replays": 0,
                               "kernels_built": 0, "kernel_load_s": 0.0,
                               "model_load_s": 0.0, "graph_captures": 0,
-                              "conv_search_calls": 0}
-PER_CALL = ("host_syncs", "graph_replays")
+                              "conv_search_calls": 0, "norm_launches": 0}
+PER_CALL = ("host_syncs", "graph_replays", "norm_launches")
+# the PER_CALL counters that count a wrapper's launches inside a recording
+# root: counter -> the wrapper's counter (as `launch_counts` names it)
+RECORDED_LAUNCHES = {"norm_launches": "instance_norm_act.launches"}
 
 
 class Record:
@@ -93,7 +101,9 @@ class Record:
 
 
 _records: List[Record] = []
-_open: list = []           # (span, record, profiler range, sync counting)
+# (span, record, profiler range, sync counting, launches at the start);
+# the last two for a root only
+_open: list = []
 _ids = itertools.count()
 
 
@@ -114,16 +124,20 @@ class span:
         parent = _open[-1][1] if _open else None
         rec = Record(next(_ids), self.name, parent, start)
         _records.append(rec)
-        _open.append((self, rec, rng,
-                      _count_syncs() if parent is None else None))
+        root = parent is None
+        _open.append((self, rec, rng, _count_syncs() if root else None,
+                      _recorded_launches() if root else None))
         return self
 
     def __exit__(self, *exc):
         if not _open or _open[-1][0] is not self:
             return False
-        _, rec, rng, syncs = _open.pop()
+        _, rec, rng, syncs, launches = _open.pop()
         if syncs is not None:
             _counted_syncs(*syncs)
+        if launches is not None:
+            for name, n in _recorded_launches().items():
+                COUNTERS[name] += n - launches[name]
         rng.__exit__(None, None, None)
         rec.end_ns = time.perf_counter_ns()
         if rec.parent is not None:
@@ -159,6 +173,12 @@ def _count_or_show(show):
 def _counted_syncs(catch, mode) -> None:
     torch.cuda.set_sync_debug_mode(mode)
     catch.__exit__(None, None, None)
+
+
+def _recorded_launches() -> Dict[str, int]:
+    """The wrapper counters that `RECORDED_LAUNCHES` follows, now."""
+    counts = launch_counts()
+    return {name: counts[key] for name, key in RECORDED_LAUNCHES.items()}
 
 
 def count_recorded(name: str) -> None:
