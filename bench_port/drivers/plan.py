@@ -12,7 +12,9 @@ quality near 0.5), so it follows the reference and not the program.
 `correct` compares, after the window, one call a scene drawn from the
 seed (a reservoir of one over the scene's calls), with the reference run
 once on each scene: the TSDF, the head's three volumes and the returned
-grasps (`judge.plan_numbers`)."""
+grasps (`judge.plan_numbers`); a configuration in another dtype than
+float32 runs the reference a second time with its products in that dtype,
+the yardstick of the `.vs_dtype` numbers."""
 from __future__ import annotations
 
 import random
@@ -191,6 +193,9 @@ class Driver:
     @torch.no_grad()
     def check(self) -> Dict[str, float]:
         ref = common.reference_model(self.config, self.weights, self.device)
+        dtype = self.config["compute_dtype"]
+        own = None if dtype == "float32" else common.reference_model(
+            self.config, self.weights, self.device, dtype)
         rows = []
         for i in sorted(self.samples):
             inputs = ref_scene(self.pool[i], self.device)
@@ -203,6 +208,7 @@ class Driver:
                 self.record.flops_per_call = float(fc.get_total_flops())
             else:
                 vol, heads = ref.plan(inputs)
-            rows.append(judge.plan_numbers(self.samples[i], vol, heads,
-                                           self.threshold, self.k))
-        return judge.worst(rows)
+            rows.append(judge.plan_numbers(
+                self.samples[i], vol, heads, self.threshold, self.k,
+                None if own is None else own.plan(inputs)))
+        return judge.vs_dtype(judge.worst(rows))

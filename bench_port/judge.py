@@ -14,7 +14,19 @@ Planning (per sampled call, the widest over the sample):
   how far its voxel falls short of the threshold or of the best quality in
   its NMS window, its rotation and width; and the margin by which each
   candidate that was not returned is kept. The volumes' own gaps test the
-  layers before the post-processing.
+  layers before the post-processing. `cands.returned`, not compared: the
+  most grasps a sampled call returned; 0 where the seed's weights put the
+  whole TSDF inside the surface, so that the processed quality is 0 in
+  every voxel and no threshold keeps a grasp (PERF.md, section 7).
+- `<gap>.vs_dtype`, where the configuration computes in another dtype
+  than float32: each of the volumes' widest gaps over the sample, over the
+  same widest gap of the reference with its products rounded to that dtype
+  on the same scenes (`<gap>.dtype`). How far a bfloat16 computation lies
+  from float32 is set by the seed's weights, several times more on some
+  seeds than on others, and the program follows it, so no gap alone
+  separates the program from the fp8 control by 3x over many seeds; in
+  units of the dtype's own gap the program reads about 1 and the control
+  about 10 on every seed (PERF.md, section 2).
 
 Training (the first three steps, which set-up drives through the window's
 own step and feed):
@@ -98,35 +110,62 @@ def cand_gaps(cands: List[Cand], q, rot, width, threshold: float,
     return gaps
 
 
-def plan_numbers(sample, ref_vol, ref_heads, threshold: float,
-                 k: int) -> Dict[str, float]:
-    """One sampled call's numbers, and the candidates' parts under dotted
-    names. sample: (tsdf, (qual, rot, width) each [res]^3 x C,
-    candidates); ref_vol, ref_heads: the reference's on the same scene, its
-    heads with the rotation's norm before normalisation. A rotation's gap
-    is weighted by that norm over its largest: where the raw rotation is
-    near zero its direction is rounding, in the reference as in the
-    program. The candidates are judged against the reference's post-
-    processing of the program's own volumes, so that they test the post-
-    processing and the hand-over to the host, and the volumes' own gaps
-    (tsdf, qual, rot, width) test the layers before it."""
-    vol, (qual, rot, width), cands = sample
+def volume_gaps(vol, heads, ref_vol, ref_heads) -> Dict[str, float]:
+    """The TSDF's and the head's gaps, the widest and the root mean square.
+    heads: (qual, rot, width) each [res]^3 x C; ref_heads: the reference's
+    with the rotation's norm before normalisation. A rotation's gap is
+    weighted by that norm over its largest: where the raw rotation is near
+    zero its direction is rounding, in the reference as in the program."""
+    qual, rot, width = heads
     r_qual, r_rot, r_width, r_norm = ref_heads
     weight = r_norm[..., 0] / r_norm.max().clamp_min(1e-30)
     sign_free = torch.minimum((rot - r_rot).abs().amax(-1),
                               (rot + r_rot).abs().amax(-1))
-    out = {"tsdf": _rel_gap(vol, ref_vol), "qual": _rel_gap(qual, r_qual),
-           "rot": float((sign_free * weight).max()),
-           "width": _rel_gap(width, r_width),
-           "tsdf.rms": _rms_gap(vol, ref_vol),
-           "qual.rms": _rms_gap(qual, r_qual),
-           "rot.rms": float((sign_free * weight).pow(2).mean().sqrt()),
-           "width.rms": _rms_gap(width, r_width)}
+    return {"tsdf": _rel_gap(vol, ref_vol), "qual": _rel_gap(qual, r_qual),
+            "rot": float((sign_free * weight).max()),
+            "width": _rel_gap(width, r_width),
+            "tsdf.rms": _rms_gap(vol, ref_vol),
+            "qual.rms": _rms_gap(qual, r_qual),
+            "rot.rms": float((sign_free * weight).pow(2).mean().sqrt()),
+            "width.rms": _rms_gap(width, r_width)}
+
+
+def plan_numbers(sample, ref_vol, ref_heads, threshold: float,
+                 k: int, own=None) -> Dict[str, float]:
+    """One sampled call's numbers, and the candidates' parts under dotted
+    names. sample: (tsdf, (qual, rot, width) each [res]^3 x C,
+    candidates); ref_vol, ref_heads: the reference's on the same scene
+    (`volume_gaps`); own: (tsdf, heads) of the reference with its products
+    in the configuration's dtype, where that is not float32, whose gaps
+    come as `<gap>.dtype`. The candidates are judged against the
+    reference's post-processing of the program's own volumes, so that they
+    test the post-processing and the hand-over to the host, and the
+    volumes' own gaps test the layers before it."""
+    vol, (qual, rot, width), cands = sample
+    out = volume_gaps(vol, (qual, rot, width), ref_vol, ref_heads)
+    if own is not None:
+        out.update({key + ".dtype": v for key, v in volume_gaps(
+            own[0], own[1][:3], ref_vol, ref_heads).items()})
     q = reference.process_quality(vol, qual[..., 0], width[..., 0])
     mine = reference.candidates(q, rot, width[..., 0], threshold, k)
     parts = cand_gaps(cands, q, rot, width[..., 0], threshold, k, mine)
     out.update({"cands." + key: v for key, v in parts.items()})
     out["cands"] = max(parts.values())
+    out["cands.returned"] = float(len(cands))
+    return out
+
+
+def vs_dtype(numbers: Dict[str, float]) -> Dict[str, float]:
+    """`numbers` with each gap that has a `<gap>.dtype` beside it also over
+    that (`<gap>.vs_dtype`); inf where that unit is not finite or not above
+    0, so that a broken yardstick fails the run."""
+    out = dict(numbers)
+    for key, unit in numbers.items():
+        if key.endswith(".dtype"):
+            gap = key[:-len(".dtype")]
+            out[gap + ".vs_dtype"] = (numbers[gap] / unit
+                                      if math.isfinite(unit) and unit > 0
+                                      else math.inf)
     return out
 
 

@@ -10,7 +10,8 @@ post-processing, the training losses and Adam). It imports neither `jax`
 nor the JAX package nor anything of the PyTorch port, and takes only the
 state dict and the inputs the benchmark makes. Every matrix product and
 convolution reads its operands through a `Precision`: float32 for the
-reference, TF32 or fp8 for the controls that must come out not correct.
+reference, TF32 or fp8 for the controls that must come out not correct,
+bfloat16 for the yardstick of the bfloat16 configuration's gaps.
 """
 from .precision import Precision
 from .model import GraspNeRF, build

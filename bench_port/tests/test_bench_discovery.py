@@ -7,10 +7,10 @@ import shutil
 import pytest
 import torch
 
-from bench_port import run, spec
+from bench_port import judge, run, spec
 from bench_port.tests.tiny import SEED, full_cell, tiny_cell
 
-WORKLOADS = ("plan-fp32",)
+WORKLOADS = ("plan-fp32", "plan-bf16")
 
 
 @pytest.mark.parametrize("name", WORKLOADS)
@@ -27,16 +27,36 @@ def test_every_cell_resolves(name):
         assert cell.reader("end_to_end", m["name"]).read
     for m in cell.per_layer:
         assert cell.reader("layer_metrics", m["name"]).read
-    names = ({"tsdf", "qual", "rot", "width", "cands"}
-             if name.startswith("plan") else {"loss", "grad", "change"})
-    assert cell.limits and set(cell.limits) <= names
+    assert cell.limits      # their names: the test below
 
 
-@pytest.mark.parametrize("name", ["plan-bf16", "train-fp32"])
+@pytest.mark.parametrize("name", ["train-fp32"])
 def test_kept_cells_resolve_from_files(name):
     cell = full_cell(name)
     assert cell.driver().Driver and cell.limits
     assert cell.config["name"].startswith("graspnerf-")
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_limits_name_numbers_the_judge_computes(name):
+    """Every limit of a planning cell names a number that the judge
+    computes for it (a limit without its number fails every run)."""
+    cell = full_cell(name)
+    g = torch.Generator().manual_seed(0)
+
+    def vol(*channels):
+        return torch.rand(8, 8, 8, *channels, generator=g)
+
+    def heads():
+        rot = torch.nn.functional.normalize(vol(4) - 0.5, dim=-1)
+        return vol(1), rot, 4 * vol(1)
+    ref_heads = heads() + (vol(1),)
+    own = None
+    if cell.config["compute_dtype"] != "float32":
+        own = (vol() - 0.5, heads() + (vol(1),))
+    row = judge.plan_numbers((vol() - 0.5, heads(), []), vol() - 0.5,
+                             ref_heads, 0.5, 4, own)
+    assert set(cell.limits) <= set(judge.vs_dtype(judge.worst([row])))
 
 
 def test_benchmark_json_contract():

@@ -11,14 +11,16 @@ from bench_port.tests.tiny import SEED, tiny_cell
 CPU = torch.device("cpu")
 
 
-@pytest.mark.parametrize("name", ["plan-fp32", "train-fp32"])
+@pytest.mark.parametrize("name", ["plan-fp32", "plan-bf16", "train-fp32"])
 def test_sound_run_is_correct(name):
     assert run.execute(tiny_cell(name), SEED, 0.2, False, CPU)["correct"]
 
 
 @pytest.mark.parametrize("name,fault", [
     ("plan-fp32", "stale"), ("plan-fp32", "half_views"),
-    ("plan-fp32", "altered"), ("train-fp32", "unchanged"),
+    ("plan-fp32", "altered"), ("plan-bf16", "stale"),
+    ("plan-bf16", "half_views"), ("plan-bf16", "altered"),
+    ("train-fp32", "unchanged"),
     ("train-fp32", "half_rays"), ("train-fp32", "altered")])
 def test_fault_is_not_correct(name, fault):
     cell = tiny_cell(name)

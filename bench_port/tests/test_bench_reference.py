@@ -1,11 +1,13 @@
 """The plain reference agrees with the port's plain path at a tiny size:
 the planning call's volumes and the training step's losses and
 gradients, on the same seeded weights and draws."""
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from bench_port import reference, scenes, weights
+from bench_port import judge, reference, scenes, weights
 from bench_port.drivers import common
 from bench_port.tests.tiny import tiny_cell
 
@@ -63,3 +65,40 @@ def test_train_losses_and_gradients(setup):
     for (name, p), a, b, n in zip(port.named_parameters(), grads, rg, norms):
         b = torch.zeros_like(p) if b is None else b
         assert float((a - b).norm()) <= 1e-4 * max(n, med), name
+
+
+def test_bfloat16_precision_rounds_operands_and_products():
+    prec = reference.Precision("bfloat16")
+    x = torch.randn(64, generator=torch.Generator().manual_seed(1))
+    want = x.to(torch.bfloat16).float()
+    assert torch.equal(prec(x), want) and torch.equal(prec.out(x), want)
+    assert not torch.equal(want, x)
+
+
+def test_gaps_in_units_of_the_dtype_reference():
+    numbers = judge.vs_dtype({"tsdf": 0.3, "tsdf.dtype": 0.1, "qual": 0.2,
+                              "cands": 0.0})
+    assert numbers["tsdf.vs_dtype"] == pytest.approx(3.0)
+    assert "qual.vs_dtype" not in numbers and numbers["qual"] == 0.2
+
+
+@pytest.mark.parametrize("unit", [math.nan, math.inf, 0.0])
+def test_a_broken_dtype_reference_fails(unit):
+    numbers = judge.vs_dtype({"tsdf": 0.3, "tsdf.dtype": unit})
+    assert numbers["tsdf.vs_dtype"] == math.inf
+
+
+def test_the_returned_grasps_are_counted():
+    g = torch.Generator().manual_seed(0)
+    vol = torch.rand(8, 8, 8, generator=g) + 0.1
+    qual = torch.rand(8, 8, 8, 1, generator=g)
+    rot = torch.nn.functional.normalize(
+        torch.rand(8, 8, 8, 4, generator=g) - 0.5, dim=-1)
+    width = torch.full((8, 8, 8, 1), 4.0)
+    q = reference.process_quality(vol, qual[..., 0], width[..., 0])
+    cands = reference.candidates(q, rot, width[..., 0], 0.3, 4)
+    row = judge.plan_numbers((vol, (qual, rot, width), cands), vol,
+                             (qual, rot, width, torch.ones_like(qual)),
+                             0.3, 4)
+    assert row["cands.returned"] == len(cands) == 4
+    assert row["cands"] == 0.0

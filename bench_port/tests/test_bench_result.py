@@ -13,6 +13,7 @@ from bench_port.tests.tiny import SEED, full_cell, tiny_cell
 
 
 @pytest.mark.parametrize("name,trace", [("plan-fp32", 0), ("plan-fp32", 1),
+                                        ("plan-bf16", 0), ("plan-bf16", 1),
                                         ("train-fp32", 0),
                                         ("train-fp32", 1)])
 def test_result_keys(name, trace):

@@ -1,6 +1,6 @@
-"""Cells cut to a size the CPU runs in seconds: the registered cell, and
-the two cells whose files are kept for a later benchmark change (PERF.md
-§7), built from their files."""
+"""Cells cut to a size the CPU runs in seconds: the registered cells, and
+the cell whose files are kept for a later benchmark change (PERF.md §7),
+built from its files."""
 import os
 
 from bench_port import spec
@@ -14,8 +14,7 @@ TINY_TRAFFIC = {"scenes": 4, "warmup_calls": 2, "trace_calls": 2,
 # a seed whose tiny planning scenes leave candidates
 SEED = 123456789012
 # cells with files but no BENCHMARK.json entry: (configuration, traffic)
-UNREGISTERED = {"plan-bf16": ("graspnerf-bf16", "plan_closed_loop"),
-                "train-fp32": ("graspnerf-fp32", "train_steps")}
+UNREGISTERED = {"train-fp32": ("graspnerf-fp32", "train_steps")}
 
 
 def full_cell(name: str, root=None):
